@@ -9,26 +9,44 @@ Phases, in order; any failure raises and the script exits non-zero:
                limit; fails unless torch.cuda.is_available();
   2. build     nvcc builds the hand-written kernels (telr_tpu_torch/csrc);
   3. parity    each kernel against its plain torch version on the card, bit
-               for bit, in all three DP modes at W = 128, 512 and 2048 (the
-               W=2048 batch is bench.py's 64 pairs of 2 kb x 3 kb), plus an
-               EXTEND batch shaped like the mapper's chunked rounds; the
-               scores-only DP instance against the traceback instance; the
-               kernel and plain times;
-  4. pipeline  the CLI (default auto routing) on a simulated genome (by
+               for bit, in all three DP modes.  The wavefront kernels at
+               W = 128, 512 and 2048 (the W=2048 batch is bench.py's 64
+               pairs of 2 kb x 3 kb), plus an EXTEND batch shaped like the
+               mapper's chunked rounds.  The row-banded DP at the shapes of
+               the mesh path: bench.py's row-banded batch (64 pairs, 2048 x
+               3072, W = 512), an extension round (256 pairs, 512 x 704 in
+               the 1024 bucket, W = 512), a region batch (64 related pairs of
+               1.5-3.5 kb in the 4096 bucket, W = 128) and a wide band
+               (W = 2048).  Each scores-only instance against its traceback
+               instance; kernel and plain times, and the copy of the
+               row-banded direction bytes to the host;
+  4. dist      the score steps, the sharded runner, the depth reduction and
+               the locus all-to-all on a one-card mesh, against the plain
+               version, AlignmentStore.coverage and the owner rule;
+  5. pipeline  the CLI (default auto routing) on a simulated genome (by
                default 3 Mb at 30x with 10 planted insertions, seed 3, from
                tools/genome_eval.py's generators): stage seconds, peak device
                memory, precision / recall / F1 against the planted truth.
-               Fails if either kernel was not launched, the vote did not run
-               on the card, an output file is missing or F1 < 0.8.
+               Fails if a wavefront kernel was not launched, the vote did not
+               run on the card, an output file is missing or F1 < 0.8;
+  6. pipeline-mesh  the CLI with --mesh_devices 1 --wavefront off on the
+               same genome: the same checks, plus the locus_redistribute
+               stage, row-banded launches and the depth reduction on the
+               card; then at 300 kb the mesh run's output files byte for
+               byte against a --wavefront off run without a mesh (the
+               native host engine).
 
-The last lines are a JSON summary of the kernels, the card's nvidia-smi name
-and power limit, and {"ok": true, "device": {...}}.  Nothing here imports
-jax or the JAX package.
+Every kernel's launch count is set to 0 just before the phase that drives its
+path and read just after.  The last lines are a JSON summary of the kernels
+(time, plain time, launches and the least time the card could take, see
+`bounds`), the card's nvidia-smi name and power limit, and {"ok": true,
+"device": {...}}.  Nothing here imports jax or the JAX package.
 """
 
 import argparse
 import importlib.util
 import json
+import logging
 import os
 import re
 import subprocess
@@ -41,12 +59,44 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 OUTPUTS = ("json", "expanded.json", "vcf", "bed", "te.fasta", "contig.fasta")
+# every file a run writes but its provenance and its timestamped log
+RUN_FILES = tuple("reads.telr." + x for x in OUTPUTS) + (
+    "reads.loci_eval.tsv", "liftover_summary.json", "liftover_report.json")
 KERNELS = {
     "wavefront_dp": ("telr_tpu_torch/csrc/wavefront_dp.cu",
                      "telr_tpu/kernels/pallas_wavefront.py:75"),
     "wavefront_walk": ("telr_tpu_torch/csrc/wavefront_walk.cu",
                        "telr_tpu/kernels/pallas_wavefront.py:939"),
+    "rowband_dp": ("telr_tpu_torch/csrc/rowband_dp.cu",
+                   "telr_tpu/kernels/pallas_dp.py:53"),
 }
+
+# The least time the card could take (`bounds`).  Memory rate: the H100
+# SXM's 3.35 TB/s.  Integer rate: NVIDIA's data sheet gives 67 TFLOP/s of
+# float32 outside the tensor cores, two operations per lane and clock on 128
+# lanes an SM; the Hopper SM has 64 int32 lanes beside them, one operation
+# each, so 67 / 4 = 16.75 T int32 operations a second.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 16.75e12
+# Integer operations per band cell, one per add / compare / max / select of
+# the recurrences (hopper_dp._rowband_dp_plain, wavefront.py): scores only,
+# and with the direction byte and its bits; and per step of the walk.
+ROWBAND_OPS = {False: 36, True: 54}
+WAVEFRONT_OPS = {False: 34, True: 50}
+WALK_OPS_PER_STEP = 20
+
+
+PHASES = ("parity", "rowband-parity", "dist", "pipeline", "pipeline-mesh",
+          "mesh-identity")
+
+
+def bounds(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of the bytes the function must move
+    over the memory rate and its operations over the int32 rate."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
 
 
 def _related(rng, lq, lt, n_sub, indel=0):
@@ -72,11 +122,15 @@ def ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"(wavefront_\w+?_kernel)(?:ILi(\d+)ELi(\d+)ELb(\d)E)?",
+            k = re.search(r"((?:wavefront|rowband)_[a-z]+_kernel)(\w*)",
                           m.group(1))
-            name = (k.group(1) + (f"<{k.group(2)}, {k.group(3)}, "
-                                  f"{'true' if k.group(4) == '1' else 'false'}>"
-                                  if k.group(2) else "")) if k else m.group(1)
+            if k:
+                # template arguments as mangled: Li<int>E, Lb<0|1>E
+                targs = [v if t == "i" else ("false", "true")[int(v)]
+                         for t, v in re.findall(r"L([ib])(\d+)E", k.group(2))]
+                name = k.group(1) + (f"<{', '.join(targs)}>" if targs else "")
+            else:
+                name = m.group(1)
         elif "spill stores" in line:
             spills = line.split(":")[-1].strip()
         elif "Used" in line:
@@ -205,9 +259,22 @@ def check_case(name, width, mode, pairs, guides, device, reps=3):
         raise AssertionError(f"{name} mode {mode}: {n_bad} walks left the "
                              "band")
     walk_err = _max_err([(packed, ppacked), (small, psmall)])
-    cells = int((lq + lt).sum()) * width
+    steps = int((lq + lt).sum())
+    cells = steps * width
+    wire = sum(x.numel() * x.element_size() for x in (meta, init, scal))
+    # the DP reads the wire arrays and writes a byte per cell of its own
+    # steps; the walk reads a direction byte and a meta byte per step
+    dp_bound = bounds(wire + cells + 16 * n, WAVEFRONT_OPS[True] * cells)
+    sc_bound = bounds(wire + 8 * n, WAVEFRONT_OPS[False] * cells)
+    walk_bound = bounds(2 * steps + packed.numel() * packed.element_size()
+                        + small.numel() * small.element_size(),
+                        WALK_OPS_PER_STEP * steps)
     return {"case": name, "width": width, "mode": mode, "pairs": n,
             "S_pad": S_pad, "cells": cells,
+            "dp_bound_ms": dp_bound[0], "dp_bound_by": dp_bound[1],
+            "dp_scores_bound_ms": sc_bound[0],
+            "dp_scores_bound_by": sc_bound[1],
+            "walk_bound_ms": walk_bound[0], "walk_bound_by": walk_bound[1],
             "dp_ms": dp_ms, "dp_plain_ms": dp_plain_ms, "dp_err": dp_err,
             "dp_scores_ms": sc_ms,
             "walk_ms": walk_ms, "walk_plain_ms": walk_plain_ms,
@@ -224,6 +291,260 @@ def phase_parity(device):
     name, width, pairs, guides = extend_round_case()
     results.append(check_case(name, width, EXTEND, pairs, guides, device))
     return results
+
+
+def rowband_cases(seed=2):
+    """(name, width, (q, t, off, qlen, tlen)) padded batches at the shapes
+    the mesh path hands the row-banded DP, built as dp._prep_pair pads them
+    (codes 4 past the lengths, the last offset repeated)."""
+    from telr_tpu_torch.kernels import dp
+    rng = np.random.default_rng(seed)
+
+    def batch(pairs, width, offs=None):
+        lq_b = dp._bucket(max(len(q) for q, _ in pairs))
+        lt_b = dp._bucket(max(len(t) for _, t in pairs))
+        B = len(pairs)
+        q = np.full((B, lq_b), 4, np.int8)
+        t = np.full((B, lt_b), 4, np.int8)
+        off = np.zeros((B, lq_b + 1), np.int32)
+        qlen = np.zeros(B, np.int32)
+        tlen = np.zeros(B, np.int32)
+        for b, (qq, tt) in enumerate(pairs):
+            o = (dp.make_band_offsets(len(qq), len(tt), width)
+                 if offs is None else offs[b])
+            q[b, :len(qq)] = qq
+            t[b, :len(tt)] = tt
+            off[b] = o[-1]
+            off[b, :len(o)] = o
+            qlen[b], tlen[b] = len(qq), len(tt)
+        return q, t, off, qlen, tlen
+
+    cases = []
+    # bench.py's row-banded batch: 64 unrelated pairs, 2048 x 3072, W = 512
+    B, LQ, LT, W = 64, 2048, 3072, 512
+    brng = np.random.default_rng(0)
+    q = brng.integers(0, 4, size=(B, LQ)).astype(np.int8)
+    t = brng.integers(0, 4, size=(B, LT)).astype(np.int8)
+    off = np.broadcast_to(dp.make_band_offsets(LQ, LT, W), (B, LQ + 1)).copy()
+    cases.append(("bench512", W, (q, t, off, np.full(B, LQ, np.int32),
+                                  np.full(B, LT, np.int32))))
+    # one round of the mapper's chunked extension: 512 query bases against
+    # 704 target bases, at the width dp._prep_pair picks for them (512)
+    pairs = []
+    for _ in range(256):
+        q, t = _related(rng, 560, 704, 50, indel=int(rng.integers(0, 30)))
+        pairs.append((q[:512], t))
+    cases.append(("ext_round512", 512, batch(pairs, 512)))
+    # stage-1 region DPs: read-sized related pairs in the 4096 bucket
+    pairs = []
+    for _ in range(64):
+        lq = int(rng.integers(1500, 3500))
+        pairs.append(_related(rng, lq, lq, lq // 10,
+                              indel=int(rng.integers(0, 40))))
+    cases.append(("region128", 128, batch(pairs, 128)))
+    # a wide band following an anchor path across a long indel
+    pairs, offs = [], []
+    for _ in range(16):
+        lq = int(rng.integers(2600, 3400))
+        q, t = _related(rng, lq, 4000, lq // 10,
+                        indel=int(rng.integers(300, 600)))
+        pairs.append((q, t))
+        anchors = np.arange(256, min(len(q), len(t)) // 4, 256)
+        offs.append(dp.offsets_from_path(len(q), len(t), 2048, anchors,
+                                         anchors))
+    cases.append(("wide2048", 2048, batch(pairs, 2048, offs)))
+    return cases
+
+
+def check_rowband(name, width, mode, arrays, device, reps=3):
+    """One batch through both instances of the row-banded DP kernel and its
+    plain version on `device`; raises on any difference.  Returns timings,
+    errors and the kernel's bounds for this batch."""
+    import torch
+    from telr_tpu_torch.kernels import hopper_dp
+    from telr_tpu_torch.kernels.dp import DPParams
+    ptuple = DPParams().tuple()
+    dts = (torch.int8, torch.int8, torch.int32, torch.int32, torch.int32)
+    q, t, off, qlen, tlen = (torch.from_numpy(a).to(device=device, dtype=dt)
+                             for a, dt in zip(arrays, dts))
+    kw = dict(width=width, mode=mode, params_tuple=ptuple)
+    tb_ms, k_out = _timed(lambda: hopper_dp.rowband_dp(
+        q, t, off, qlen, tlen, tb=True, **kw), reps, device)
+    sc_ms, k_sc = _timed(lambda: hopper_dp.rowband_dp(
+        q, t, off, qlen, tlen, tb=False, **kw), reps, device)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    p_out = hopper_dp._rowband_dp_plain(q, t, off, qlen, tlen, width, mode,
+                                        ptuple, True)
+    torch.cuda.synchronize(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    p_sc = hopper_dp._rowband_dp_plain(q, t, off, qlen, tlen, width, mode,
+                                       ptuple, False)
+    torch.cuda.synchronize(device)
+    plain_sc_ms = (time.perf_counter() - t0) * 1e3
+    for what, a, b in zip(("gscore", "best", "besti", "bestp"),
+                          k_out[1:], p_out[1:]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} mode {mode}: rowband_dp {what} "
+                                 "differs from the plain version")
+    B, Lq = q.shape
+    # the kernel stops at each pair's qlen: later dirs rows are unwritten
+    rows = (torch.arange(Lq, device=device)[None, :]
+            < qlen[:, None])[:, :, None]
+    err = _max_err([(k_out[0], p_out[0])], rows)
+    if err:
+        raise AssertionError(f"{name} mode {mode}: rowband_dp direction "
+                             "bytes differ from the plain version")
+    for a, b, c in zip(k_sc, k_out[1:3], p_sc):
+        if not (torch.equal(a, b) and torch.equal(a, c)):
+            raise AssertionError(f"{name} mode {mode}: the scores-only "
+                                 "instance differs")
+    err = max(err, _max_err(list(zip(k_out[1:], p_out[1:]))
+                            + list(zip(k_sc, p_sc))))
+    # the copy the mesh runner makes for the host traceback
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    k_out[0].cpu()
+    d2h_ms = (time.perf_counter() - t0) * 1e3
+    # bounds: inputs read once, outputs written once (direction bytes of
+    # the rows each pair has), operations per cell of those rows
+    n_rows = int(torch.minimum(qlen, torch.tensor(Lq, device=device)).sum())
+    cells = n_rows * width
+    in_bytes = sum(x.numel() * x.element_size()
+                   for x in (q, t, off, qlen, tlen))
+    tb_bound = bounds(in_bytes + cells + 16 * B, ROWBAND_OPS[True] * cells)
+    sc_bound = bounds(in_bytes + 8 * B, ROWBAND_OPS[False] * cells)
+    return {"case": name, "width": width, "mode": mode, "pairs": B,
+            "Lq": Lq, "Lt": t.shape[1], "cells": cells,
+            "tb_ms": tb_ms, "tb_plain_ms": plain_ms,
+            "tb_bound_ms": tb_bound[0], "tb_bound_by": tb_bound[1],
+            "scores_ms": sc_ms, "scores_plain_ms": plain_sc_ms,
+            "scores_bound_ms": sc_bound[0], "scores_bound_by": sc_bound[1],
+            "dirs_to_host_ms": d2h_ms, "dirs_bytes": k_out[0].numel(),
+            "err": err}
+
+
+def phase_rowband_parity(device):
+    from telr_tpu_torch.kernels.dp import EXTEND, GLOBAL, LOCAL
+    return [check_rowband(name, width, mode, arrays, device)
+            for name, width, arrays in rowband_cases()
+            for mode in (GLOBAL, EXTEND, LOCAL)]
+
+
+def phase_dist(device):
+    """The single-process mesh modules on a one-card mesh.  Returns the
+    row-banded launches the score steps and the runner made."""
+    import torch
+    from telr_tpu_torch.core.alignstore import AlignmentStore
+    from telr_tpu_torch.dist import exec as dexec
+    from telr_tpu_torch.dist import pipeline as dpipe
+    from telr_tpu_torch.dist import redistribute as dred
+    from telr_tpu_torch.dist.mesh import make_mesh
+    from telr_tpu_torch.io import native
+    from telr_tpu_torch.kernels import dp, hopper_dp
+    mesh = make_mesh(1, device=device)
+    if [str(d) for d in mesh.flat_devices()] != [str(device)]:
+        raise AssertionError(f"the mesh is not on {device}: {mesh}")
+    ptuple = dp.DPParams().tuple()
+    rng = np.random.default_rng(5)
+    W = 128
+
+    def plain(q, t, off, qlen, tlen, mode, tb):
+        dts = (torch.int8, torch.int8, torch.int32, torch.int32, torch.int32)
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
+                                                             dtype=dt)
+                for a, dt in zip((q, t, off, qlen, tlen), dts)]
+        return [x.cpu().numpy() for x in hopper_dp._rowband_dp_plain(
+            *args, W, mode, ptuple, tb)]
+
+    hopper_dp.rowband_dp.launches = 0
+    # stage-1 score step: reads against one replicated reference window
+    B, LQ, LT = 64, 1024, 1280
+    t = rng.integers(0, 4, LT).astype(np.int8)
+    q = np.stack([_related(rng, LQ, LT, 100)[0] for _ in range(B)])
+    q[:, :900] = np.where(rng.random((B, 900)) < 0.9, t[None, 60:960],
+                          q[:, :900])
+    off = np.broadcast_to(dp.make_band_offsets(LQ, LT, W), (B, LQ + 1)).copy()
+    qlen = rng.integers(500, LQ + 1, B).astype(np.int32)
+    tb_ = np.repeat(t[None], B, axis=0)
+    tl_ = np.full(B, LT, np.int32)
+    for mode in (dp.GLOBAL, dp.EXTEND, dp.LOCAL):
+        got = dpipe.make_sharded_align_step(mesh, W, mode, ptuple)(
+            q, t, off, qlen, np.asarray(LT, np.int32))
+        want = plain(q, tb_, off, qlen, tl_, mode, False)
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"sharded align step differs, mode {mode}")
+    # per-locus score step
+    L, R = 8, 8
+    contigs = rng.integers(0, 4, (L, LT)).astype(np.int8)
+    reads = rng.integers(0, 4, (L, R, LQ)).astype(np.int8)
+    reads[:, :, :800] = contigs[:, None, 100:900]
+    off3 = np.broadcast_to(off[0], (L, R, LQ + 1)).copy()
+    qlen3 = rng.integers(500, LQ + 1, (L, R)).astype(np.int32)
+    tlen3 = rng.integers(1000, LT + 1, L).astype(np.int32)
+    got = dpipe.make_locus_score_step(mesh, W, ptuple)(
+        reads, contigs, off3, qlen3, tlen3)
+    want = plain(reads.reshape(L * R, LQ), np.repeat(contigs, R, axis=0),
+                 off3.reshape(L * R, LQ + 1), qlen3.reshape(-1),
+                 np.repeat(tlen3, R), dp.EXTEND, False)
+    if not all(np.array_equal(g.reshape(-1), w) for g, w in zip(got, want)):
+        raise AssertionError("locus score step differs")
+    score_launches = hopper_dp.rowband_dp.launches
+    # the sharded runner (numpy in, numpy out) against the native engine
+    got = dexec.sharded_dp_runner(mesh)(q, tb_, off, qlen, tl_, width=W,
+                                        mode=dp.EXTEND, params_tuple=ptuple)
+    want = native.banded_dp_batch(q, tb_, off, qlen, tl_, width=W,
+                                  mode=dp.EXTEND, params_tuple=ptuple)
+    for g, w in zip(got[1:], want[1:]):
+        if not np.array_equal(g, w):
+            raise AssertionError("sharded runner scores differ from the "
+                                 "native engine")
+    for b in range(B):
+        if not np.array_equal(got[0][b, :qlen[b]], want[0][b, :qlen[b]]):
+            raise AssertionError("sharded runner direction bytes differ "
+                                 "from the native engine")
+    launches = hopper_dp.rowband_dp.launches
+    if score_launches != 4 or launches != 5:
+        raise AssertionError(f"expected 4 + 1 launches, saw {launches}")
+    # depth reduction against AlignmentStore.coverage
+    from telr_tpu_torch.config import MAP_PB
+    from telr_tpu_torch.io.seqs import Sequence, SeqDict
+    from telr_tpu_torch.kernels.mapper import Aligner
+    G = 20000
+    ref = rng.integers(0, 4, G).astype(np.int8)
+    aligner = Aligner(SeqDict([Sequence("c", ref)]), MAP_PB)
+    alns = []
+    for i in range(60):
+        s0 = int(rng.integers(0, G - 2100))
+        codes = ref[s0:s0 + 2000].copy()
+        codes = np.concatenate([codes[:1000],
+                                rng.integers(0, 4, 20).astype(np.int8),
+                                codes[1010:]])
+        alns.extend(aligner.map_seq(f"r{i}", codes))
+    store = AlignmentStore(alns)
+    dexec.mesh_coverage.device_calls.clear()
+    cov = dexec.mesh_coverage(mesh, store, "c", G)
+    if not np.array_equal(cov, store.coverage("c", 0, G)) or cov.max() < 2:
+        raise AssertionError("mesh_coverage differs from the alignment "
+                             "store's coverage")
+    if dexec.mesh_coverage.device_calls != {"cuda": 1}:
+        raise AssertionError("the depth reduction did not run on the card: "
+                             f"{dexec.mesh_coverage.device_calls}")
+    # locus all-to-all round trip (one shard routes to itself)
+    items = [[(int(rng.integers(0, 50)), k, k % 2,
+               rng.integers(0, 4, int(rng.integers(500, 20000))).astype(
+                   np.int8)) for k in range(200)]]
+    (got,) = dred.redistribute_payloads(mesh, items, max_bytes=1 << 22)
+    want = sorted(items[0], key=lambda x: (x[0], x[2], x[1]))
+    if len(got) != len(want) or not all(
+            g[:3] == w[:3] and np.array_equal(g[3], w[3])
+            for g, w in zip(got, want)):
+        raise AssertionError("redistribute_payloads round trip differs")
+    print(f"dist: score steps, runner, depth ({len(alns)} alignments, peak "
+          f"depth {int(cov.max())}) and all-to-all ({len(want)} payloads) "
+          f"agree on {mesh}; row-banded launches {launches}", flush=True)
+    return score_launches
 
 
 def _genome_eval():
@@ -258,36 +579,62 @@ def simulate(workdir, size, coverage, n_ins, seed):
     return paths, truth, len(reads), n_bases, ge.score_calls
 
 
-def phase_pipeline(device, size, coverage, n_ins, seed, threads):
+def run_cli(device, inputs, out, threads, coverage, extra=()):
+    """One run of the port's CLI with every launch count set to 0 just
+    before it.  Returns the result, the kernels' launch counts, the vote and
+    depth-reduction device counts, wall seconds and peak device bytes."""
     import torch
     from telr_tpu_torch import cli
     from telr_tpu_torch.assembly.device_vote import vote_many
+    from telr_tpu_torch.dist.exec import mesh_coverage
+    from telr_tpu_torch.kernels import hopper_dp
     from telr_tpu_torch.kernels import hopper_wavefront as hw
+    from telr_tpu_torch.utils import hoststats
+    reads, ref, lib = inputs
+    argv = ["-i", reads, "-r", ref, "-l", lib, "-o", out, "-t", str(threads),
+            # tools/genome_eval.py's setting: max(3, coverage // 8)
+            "--min_support", str(max(3, coverage // 8))] + list(extra)
+    # run_pipeline's logging.basicConfig opens this run's TELR.log only when
+    # the root logger has no handler left from an earlier run
+    for h in logging.root.handlers[:]:
+        logging.root.removeHandler(h)
+        h.close()
+    # ... and its alignment breakdown reads the spans since the last reset
+    hoststats.reset()
+    hw.wavefront_dp.launches = 0
+    hw.wavefront_walk.launches = 0
+    hopper_dp.rowband_dp.launches = 0
+    vote_many.device_calls.clear()
+    mesh_coverage.device_calls.clear()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = {"wavefront_dp": hw.wavefront_dp.launches,
+                "wavefront_walk": hw.wavefront_walk.launches,
+                "rowband_dp": hopper_dp.rowband_dp.launches}
+    return (res, launches, dict(vote_many.device_calls),
+            dict(mesh_coverage.device_calls), wall,
+            torch.cuda.max_memory_allocated(device))
+
+
+def phase_pipeline(device, size, coverage, n_ins, seed, threads, mesh=False):
+    """The CLI on the simulated genome: default auto routing, or with
+    mesh=True the mesh path (--mesh_devices 1 --wavefront off)."""
+    tag = "pipeline-mesh" if mesh else "pipeline"
+    extra = ["--mesh_devices", "1", "--wavefront", "off"] if mesh else []
     with tempfile.TemporaryDirectory(prefix="telr_smoke_") as work:
         t0 = time.perf_counter()
-        (reads, ref, lib), truth, n_reads, n_bases, score_calls = simulate(
+        inputs, truth, n_reads, n_bases, score_calls = simulate(
             work, size, coverage, n_ins, seed)
-        print(f"pipeline: simulated {size / 1e6:g} Mb at {coverage}x, "
+        print(f"{tag}: simulated {size / 1e6:g} Mb at {coverage}x, "
               f"{len(truth)} insertions, {n_reads} reads "
               f"({n_bases / 1e6:.1f} Mb) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         out = os.path.join(work, "out")
-        argv = ["-i", reads, "-r", ref, "-l", lib, "-o", out,
-                "-t", str(threads),
-                # tools/genome_eval.py's setting: max(3, coverage // 8)
-                "--min_support", str(max(3, coverage // 8))]
-        hw.wavefront_dp.launches = 0
-        hw.wavefront_walk.launches = 0
-        vote_many.device_calls.clear()
-        torch.cuda.reset_peak_memory_stats(device)
-        t0 = time.perf_counter()
-        res = cli.main(argv)
-        torch.cuda.synchronize(device)
-        wall = time.perf_counter() - t0
-        launches = {"wavefront_dp": hw.wavefront_dp.launches,
-                    "wavefront_walk": hw.wavefront_walk.launches}
-        votes = dict(vote_many.device_calls)
-        peak = torch.cuda.max_memory_allocated(device)
+        res, launches, votes, depth, wall, peak = run_cli(
+            device, inputs, out, threads, coverage, extra)
         missing = [x for x in OUTPUTS
                    if not os.path.isfile(os.path.join(out, "reads.telr."
                                                       + x))]
@@ -295,21 +642,31 @@ def phase_pipeline(device, size, coverage, n_ins, seed, threads):
         with open(os.path.join(out, "TELR.log")) as f:
             breakdown = [ln.split(": ", 2)[-1].strip() for ln in f
                          if "alignment breakdown" in ln]
-    print("pipeline: stage seconds " + json.dumps(
+    print(f"{tag}: stage seconds " + json.dumps(
         {k: round(v, 2) for k, v in res.stage_seconds.items()}))
-    print(f"pipeline: wall {wall:.1f} s, {n_reads / res.stage_seconds['alignment']:.1f} "
+    print(f"{tag}: wall {wall:.1f} s, "
+          f"{n_reads / res.stage_seconds['alignment']:.1f} "
           f"reads/s in alignment, peak device memory "
           f"{peak / 2**30:.2f} GiB, launches {json.dumps(launches)}, "
-          f"vote calls {json.dumps(votes)}")
+          f"vote calls {json.dumps(votes)}, depth reductions "
+          f"{json.dumps(depth)}")
     for ln in breakdown:
-        print("pipeline: " + ln)
-    print(f"pipeline: {len(res.final_report)} calls, precision "
+        print(f"{tag}: " + ln)
+    print(f"{tag}: {len(res.final_report)} calls, precision "
           f"{score['precision']} recall {score['recall']} F1 {score['f1']} "
           f"(tp {score['tp']} fp {score['fp']} fn {score['fn']})",
           flush=True)
-    for k, v in launches.items():
-        if v == 0:
-            raise AssertionError(f"the pipeline never launched {k}")
+    on_path = ("rowband_dp",) if mesh else ("wavefront_dp", "wavefront_walk")
+    for k in on_path:
+        if launches[k] == 0:
+            raise AssertionError(f"the {tag} run never launched {k}")
+    if mesh:
+        if "locus_redistribute" not in res.stage_seconds:
+            raise AssertionError("the mesh run has no locus_redistribute "
+                                 "stage")
+        if depth.get("cuda", 0) == 0 or set(depth) != {"cuda"}:
+            raise AssertionError("the depth reduction did not run on the "
+                                 f"card: {depth}")
     if votes.get("cuda", 0) == 0:
         raise AssertionError(f"the vote did not run on the card: {votes}")
     if missing:
@@ -319,6 +676,37 @@ def phase_pipeline(device, size, coverage, n_ins, seed, threads):
     return launches
 
 
+def phase_mesh_identity(device, coverage, n_ins, seed, threads,
+                        size=300_000):
+    """At 300 kb: the mesh run's output files byte for byte against a
+    --wavefront off run without a mesh (the native host engine), which the
+    row-banded kernel's bit-exactness promises."""
+    with tempfile.TemporaryDirectory(prefix="telr_smoke_") as work:
+        inputs, _truth, n_reads, _n_bases, _score = simulate(
+            work, size, coverage, n_ins, seed)
+        outs = {}
+        for name, extra in (("mesh", ["--mesh_devices", "1",
+                                      "--wavefront", "off"]),
+                            ("host", ["--wavefront", "off"])):
+            outs[name] = os.path.join(work, name)
+            _res, launches, _v, _d, wall, _peak = run_cli(
+                device, inputs, outs[name], threads, coverage, extra)
+            print(f"mesh-identity: {name} run of {size / 1e6:g} Mb, "
+                  f"{n_reads} reads: {wall:.1f} s, launches "
+                  f"{json.dumps(launches)}", flush=True)
+            if (launches["rowband_dp"] > 0) != (name == "mesh"):
+                raise AssertionError(f"{name} run: unexpected row-banded "
+                                     f"launches {launches}")
+        for f in RUN_FILES:
+            with open(os.path.join(outs["mesh"], f), "rb") as a, \
+                    open(os.path.join(outs["host"], f), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"{f} differs between the mesh run "
+                                         "and the meshless run")
+    print(f"mesh-identity: {len(RUN_FILES)} output files byte-identical",
+          flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--size", type=int, default=3_000_000,
@@ -326,6 +714,10 @@ def main(argv=None):
     ap.add_argument("--coverage", type=int, default=30)
     ap.add_argument("--n-ins", type=int, default=10)
     ap.add_argument("--seed", type=int, default=3)
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of the phases after the "
+                         "build, for debugging; a partial run prints no "
+                         "summary and no ok line")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(ROOT, "telr_tpu_torch")):
@@ -359,29 +751,87 @@ def main(argv=None):
         print("build: " + line)
     sys.stdout.flush()
 
-    results = phase_parity(device)
-    for r in results:
-        print("parity: " + json.dumps(r) + f" [{smi}]", flush=True)
-    print("parity: every case bit-exact (tolerance 0)", flush=True)
-
+    phases = set(args.phases.split(","))
+    if not phases <= set(PHASES):
+        sys.exit(f"chip_smoke: unknown phases {sorted(phases - set(PHASES))}")
     threads = min(8, os.cpu_count() or 1)
-    launches = phase_pipeline(device, args.size, args.coverage, args.n_ins,
-                              args.seed, threads)
+    clock = [time.perf_counter()]
+
+    def done(phase):
+        now = time.perf_counter()
+        print(f"{phase}: phase took {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
+    if "parity" in phases:
+        results = phase_parity(device)
+        for r in results:
+            print("parity: " + json.dumps(r) + f" [{smi}]", flush=True)
+        done("parity")
+    if "rowband-parity" in phases:
+        rb_results = phase_rowband_parity(device)
+        for r in rb_results:
+            print("parity: " + json.dumps(r) + f" [{smi}]", flush=True)
+        done("rowband-parity")
+    if "dist" in phases:
+        score_launches = phase_dist(device)
+        done("dist")
+    if "pipeline" in phases:
+        launches = phase_pipeline(device, args.size, args.coverage,
+                                  args.n_ins, args.seed, threads)
+        done("pipeline")
+    if "pipeline-mesh" in phases:
+        mesh_launches = phase_pipeline(device, args.size, args.coverage,
+                                       args.n_ins, args.seed, threads,
+                                       mesh=True)
+        done("pipeline-mesh")
+    if "mesh-identity" in phases:
+        phase_mesh_identity(device, args.coverage, args.n_ins, args.seed,
+                            threads)
+        done("mesh-identity")
 
     for mod in ("jax", "telr_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")
+    if phases != set(PHASES):
+        print(f"partial run ({sorted(phases)}): no summary")
+        return
+    print("parity: every case bit-exact (tolerance 0)", flush=True)
     # the summary's times are bench.py's batch in EXTEND mode (its metric)
     bench = next(r for r in results
                  if r["case"] == "bench2048" and r["mode"] == 1)
+    # ... and, for the row-banded DP, bench.py's batch in GLOBAL mode
+    rb_bench = next(r for r in rb_results
+                    if r["case"] == "bench512" and r["mode"] == 0)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        key = "dp" if name == "wavefront_dp" else "walk"
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(r[key + "_err"] for r in results),
-            "ms": bench[key + "_ms"], "plain_ms": bench[key + "_plain_ms"]})
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces}
+        if name == "rowband_dp":
+            # launches: the traceback instance on the mesh pipeline's path,
+            # the scores-only instance on the dist score steps'
+            entry.update(
+                launches=mesh_launches[name],
+                max_abs_err=max(r["err"] for r in rb_results),
+                ms=rb_bench["tb_ms"], plain_ms=rb_bench["tb_plain_ms"],
+                bound_ms=rb_bench["tb_bound_ms"],
+                bound_by=rb_bench["tb_bound_by"], library_ms=None,
+                scores_launches=score_launches,
+                scores_ms=rb_bench["scores_ms"],
+                scores_plain_ms=rb_bench["scores_plain_ms"],
+                scores_bound_ms=rb_bench["scores_bound_ms"],
+                scores_bound_by=rb_bench["scores_bound_by"],
+                dirs_to_host_ms=rb_bench["dirs_to_host_ms"])
+        else:
+            key = "dp" if name == "wavefront_dp" else "walk"
+            entry.update(
+                launches=launches[name],
+                max_abs_err=max(r[key + "_err"] for r in results),
+                ms=bench[key + "_ms"], plain_ms=bench[key + "_plain_ms"],
+                bound_ms=bench[key + "_bound_ms"],
+                bound_by=bench[key + "_bound_by"], library_ms=None)
+        kernels.append(entry)
+    # library_ms is null throughout: no single PyTorch call computes a
+    # banded affine-gap DP or a traceback walk
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

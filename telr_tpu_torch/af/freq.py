@@ -176,9 +176,9 @@ def estimate_af(
         # depth reductions through the mesh: full-contig M-base coverage is
         # psum-reduced over the "reads" axis (CIGAR-true, bit-identical to
         # the host path), window medians sliced from the result
-        raise NotImplementedError(
-            "mesh depth reductions need dist/ on torch.distributed, which "
-            "is not ported yet (ROADMAP: dist/ on torch.distributed)")
+        from telr_tpu_torch.dist.exec import mesh_coverage
+        stores = [_MeshDepthView(mesh_coverage(mesh, st, cname, clen))
+                  for (cname, _rc, clen), st in zip(jobs, stores)]
     for (cname, rc, clen), store in zip(jobs, stores):
         (s, e) = te_coords[cname][1 if rc else 0]
         te_5p, te_3p = _get_te_cov(store, cname, s, e, cfg)

@@ -74,8 +74,12 @@ def get_args(argv=None):
                         "te_filter, assembly, annotate, af, repeatmask, "
                         "liftover)")
     p.add_argument("--mesh_devices", type=int, default=0,
-                   help="multi-device sharding (0 = off); not ported yet: "
-                        "N > 0 raises NotImplementedError")
+                   help="shard stage-1 DP, the locus all-to-all and depth "
+                        "reductions over an N-device mesh driven by this "
+                        "process: N CUDA cards, or N CPU shards when there "
+                        "is no card (0 = off).  The row-banded DP reaches "
+                        "the mesh in the stages that stay off the wavefront "
+                        "route, so pair it with --wavefront off")
     p.add_argument("--checkpoint_dir", default=None,
                    help="per-stage checkpoint directory (resume after the "
                         "last completed stage)")
@@ -143,11 +147,6 @@ def main(argv=None):
     from telr_tpu_torch.utils.procpool import ensure_forkserver
     ensure_forkserver()   # before CUDA starts threads (see procpool.py)
     args = get_args(argv)
-    if args.mesh_devices:
-        raise NotImplementedError(
-            "--mesh_devices needs dist/ on torch.distributed, which is not "
-            "ported yet (ROADMAP queue 1: dist/ on torch.distributed; "
-            "--mesh_devices)")
     if args.profile_dir:
         raise NotImplementedError(
             "--profile_dir needs the torch.profiler trace, which is not "
@@ -161,8 +160,12 @@ def main(argv=None):
     ckpt_dir = args.checkpoint_dir
     if ckpt_dir is None and args.keep_files:
         ckpt_dir = os.path.join(out, "intermediate_files")
+    mesh = None
+    if args.mesh_devices:
+        from telr_tpu_torch.dist.mesh import make_mesh
+        mesh = make_mesh(args.mesh_devices)
     result = run_pipeline(args.reads, args.reference, args.library, out, cfg,
-                          checkpoint_dir=ckpt_dir)
+                          checkpoint_dir=ckpt_dir, mesh=mesh)
     print("TELR finished!")
     return result
 

@@ -1,0 +1,140 @@
+"""Device-mesh setup and sharding helpers.
+
+The reference is single-node multiprocessing (SURVEY.md §2c); the
+distributed design here is first-class:
+
+  * axis "reads" — data parallelism over read batches (the reference index is
+    replicated per host, reads stream across the mesh),
+  * axis "loci"  — locus parallelism for batched per-locus work (assembly,
+    AF realignment, liftover), fed by an all-to-all redistribution of
+    (locus, read) pairs after SV detection.
+
+A Mesh is a ("reads", "loci") grid of torch devices driven by ONE process:
+each shard's tensors live on its own device and the steps in dist/ loop over
+the shards.  On CUDA the shards are distinct cards; with device="cpu" every
+shard is the CPU, which is how the tests run an n-shard mesh on one host.
+Multi-process meshes (one process per card, torch.distributed collectives)
+are not ported yet: `init_distributed` raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+READS_AXIS = "reads"
+LOCI_AXIS = "loci"
+
+
+def init_distributed(coordinator: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None) -> None:
+    """Multi-host bring-up (no-op on a single process)."""
+    if num_processes and num_processes > 1:
+        raise NotImplementedError(
+            "multi-process meshes need dist/runner.py on torch.distributed, "
+            "which is not ported yet (ROADMAP, what remains: the "
+            "multi-process runner)")
+
+
+class Mesh:
+    """A (reads, loci) grid of torch devices.  Hashable and comparable by
+    its devices and axis names, so step caches can key on it."""
+
+    axis_names: Tuple[str, str] = (READS_AXIS, LOCI_AXIS)
+
+    def __init__(self, devices, axis_names=(READS_AXIS, LOCI_AXIS)):
+        import torch
+        grid = [[torch.device(d) for d in row] for row in devices]
+        if not grid or not grid[0] or any(len(r) != len(grid[0])
+                                           for r in grid):
+            raise ValueError("a mesh needs a rectangular, non-empty device "
+                             "grid")
+        self.devices = tuple(tuple(r) for r in grid)
+        self.axis_names = tuple(axis_names)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names,
+                        (len(self.devices), len(self.devices[0]))))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices) * len(self.devices[0])
+
+    def flat_devices(self):
+        """The devices in row-major order: shard k of a batch split over
+        the whole mesh lives on flat_devices()[k]."""
+        return [d for row in self.devices for d in row]
+
+    def axis_devices(self, axis: str):
+        """One device per index along `axis` (the first of the other axis):
+        where shard k of an array split over `axis` alone lives."""
+        if axis == self.axis_names[0]:
+            return [row[0] for row in self.devices]
+        if axis == self.axis_names[1]:
+            return list(self.devices[0])
+        raise KeyError(axis)
+
+    def _key(self):
+        return (tuple(tuple(str(d) for d in r) for r in self.devices),
+                self.axis_names)
+
+    def __hash__(self):
+        return hash(self._key())
+
+    def __eq__(self, other):
+        return isinstance(other, Mesh) and self._key() == other._key()
+
+    def __repr__(self):
+        return f"Mesh({self.shape}, devices={self._key()[0]})"
+
+
+def make_mesh(n_devices: Optional[int] = None, loci_parallel: int = 1,
+              device=None) -> Mesh:
+    """Build a ("reads", "loci") mesh.
+
+    device: None picks the CUDA cards when there are any, else the CPU;
+    "cuda" takes cards 0..n-1 and raises when n exceeds their number; "cpu"
+    gives n shards that all live on the CPU (n defaults to 1 there)."""
+    import torch
+    from telr_tpu_torch.utils.device import resolve
+    dev = resolve(device)
+    if dev.type == "cuda":
+        have = torch.cuda.device_count()
+        n = n_devices or have
+        if n > have:
+            raise ValueError(f"requested {n} devices, have {have}")
+        devices = [torch.device("cuda", k) for k in range(n)]
+    else:
+        n = n_devices or 1
+        devices = [dev] * n
+    if n % loci_parallel != 0:
+        raise ValueError("n_devices must be divisible by loci_parallel")
+    grid = [devices[r * loci_parallel:(r + 1) * loci_parallel]
+            for r in range(n // loci_parallel)]
+    return Mesh(grid, (READS_AXIS, LOCI_AXIS))
+
+
+def shard_slices(total: int, devices):
+    """(slice, device) per shard of a batch of `total` rows cut evenly over
+    `devices`."""
+    if total % len(devices):
+        raise ValueError(f"a batch of {total} does not divide over "
+                         f"{len(devices)} shards")
+    per = total // len(devices)
+    return [(slice(k * per, (k + 1) * per), dev)
+            for k, dev in enumerate(devices)]
+
+
+def pad_to_multiple(a: np.ndarray, multiple: int, axis: int = 0,
+                    fill=0) -> np.ndarray:
+    """Pad the batch axis so it divides evenly across mesh shards."""
+    n = a.shape[axis]
+    rem = (-n) % multiple
+    if rem == 0:
+        return a
+    pad_widths = [(0, 0)] * a.ndim
+    pad_widths[axis] = (0, rem)
+    return np.pad(a, pad_widths, constant_values=fill)

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (telr_tpu_torch/csrc/*.cu).
 
-The sources are compiled with nvcc for Hopper (sm_90a) into one shared
-library with a plain C interface, loaded with ctypes.  The build runs at
-first use, never at import: the library lands in telr_tpu_torch/_build/,
+The sources are compiled with nvcc for Hopper (sm_90a), one nvcc process per
+source and all of them at once, and linked into one shared library with a
+plain C interface, loaded with ctypes.  The build runs at first use, never
+at import: the library lands in telr_tpu_torch/_build/,
 keyed on a hash of the sources and flags, so a fresh checkout builds once
 and every later process reuses it.  A build failure raises; there is no
 fallback.
@@ -22,7 +23,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -61,14 +62,31 @@ def _build(out: str) -> None:
         if os.path.isfile(out):
             return
         tmp = out + f".tmp{os.getpid()}"
-        cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + [
-            s for s in _sources() if s.endswith(".cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=900)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        nvcc = _nvcc()
+        srcs = [s for s in _sources() if s.endswith(".cu")]
+        objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+        procs = [subprocess.Popen(
+            [nvcc] + NVCC_FLAGS + ["-c", s, "-o", o], text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for s, o in zip(srcs, objs)]
+        try:
+            logs = [p.communicate(timeout=900)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        build_log = "".join(logs)
+        if any(p.returncode != 0 for p in procs):
             raise RuntimeError("nvcc failed building the CUDA kernels:\n"
                                + build_log)
+        link = subprocess.run([nvcc, "-shared", "-o", tmp] + objs,
+                              capture_output=True, text=True, timeout=900)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError("nvcc failed linking the CUDA kernels:\n"
+                               + build_log)
+        for o in objs:
+            os.remove(o)
         os.replace(tmp, out)
 
 
@@ -86,6 +104,8 @@ def load() -> ctypes.CDLL:
             lib.telr_wavefront_dp.restype = ci
             lib.telr_wavefront_walk.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 3
             lib.telr_wavefront_walk.restype = ci
+            lib.telr_rowband_dp.argtypes = [vp] * 5 + [ci] * 11 + [vp] * 6
+            lib.telr_rowband_dp.restype = ci
             _LIB = lib
     return _LIB
 

@@ -11,10 +11,13 @@ Host side of the row-banded DP (PyTorch port):
     window of W target columns starting at `off[i]`.  Band offsets follow the
     seed chain, so arbitrarily long indels are representable as long as each
     *piece* between anchors fits its band (the mapper stitches pieces).
-  * The recurrence itself runs in the native C++ engine
+  * align_pair / align_pairs run the recurrence in the native C++ engine
     (native/telr_native.cpp, bound by io/native.py); there is no fallback
-    when that library is missing — align_pair/align_pairs raise.  A torch
-    form of the row-banded DP is still to be ported (ROADMAP).
+    when that library is missing — they raise.
+  * banded_dp_batch / banded_dp_scores run the same recurrence on a torch
+    device through kernels/hopper_dp.py (a hand-written CUDA kernel on a
+    card, plain torch ops on the CPU).  align_pairs takes them only as an
+    explicit `runner` (the mesh path's dist/exec.sharded_dp_runner).
   * Direction bits (2b H-choice, 1b D-extend, 1b I-extend) are emitted per
     cell; traceback is a cheap host-side walk.
 
@@ -128,6 +131,47 @@ def numpy_affine_dp(q: np.ndarray, t: np.ndarray, mode: int,
     best = int(H.max())
     bi, bj = np.unravel_index(int(H.argmax()), H.shape)
     return best, (int(bi), int(bj))
+
+
+# ---------------------------------------------------------------------------
+# Batched row-banded DP on a torch device
+# ---------------------------------------------------------------------------
+
+def _to_device(device, q, t, off, qlen, tlen):
+    """The batch arrays (numpy or torch) as contiguous tensors on `device`
+    (None: utils.device.resolve's choice) in the DP's dtypes."""
+    import torch
+    from telr_tpu_torch.utils.device import resolve
+    dev = resolve(device)
+    return tuple(
+        torch.as_tensor(x).to(device=dev, dtype=dt).contiguous()
+        for x, dt in ((q, torch.int8), (t, torch.int8), (off, torch.int32),
+                      (qlen, torch.int32), (tlen, torch.int32)))
+
+
+def banded_dp_scores(q, t, off, qlen, tlen, *, width, mode, params_tuple,
+                     device=None):
+    """Batched score-only banded DP.  Returns (gscore (B,), best (B,)) as
+    int32 tensors on `device`."""
+    from telr_tpu_torch.kernels.hopper_dp import rowband_dp
+    return rowband_dp(*_to_device(device, q, t, off, qlen, tlen),
+                      width=width, mode=mode, params_tuple=params_tuple,
+                      tb=False)
+
+
+def banded_dp_batch(q, t, off, qlen, tlen, *, width, mode, params_tuple,
+                    device=None):
+    """Banded DP with direction bytes over a batch.
+
+    q: (B, Lq) int8, t: (B, Lt) int8, off: (B, Lq+1) int32,
+    qlen/tlen: (B,) int32 (numpy arrays or tensors).
+    Returns dirs (B, Lq, W) uint8, gscore (B,), best (B,), besti (B,),
+    bestp (B,) as tensors on `device`.
+    """
+    from telr_tpu_torch.kernels.hopper_dp import rowband_dp
+    return rowband_dp(*_to_device(device, q, t, off, qlen, tlen),
+                      width=width, mode=mode, params_tuple=params_tuple,
+                      tb=True)
 
 
 # ---------------------------------------------------------------------------
@@ -377,8 +421,9 @@ def _native_walks() -> bool:
 def _native_dp():
     """The C++ banded-DP batch entry (native/telr_native.cpp).
 
-    Raises when the engine is missing: the port has no other row-banded DP
-    yet."""
+    Raises when the engine is missing: the torch row-banded DP
+    (banded_dp_batch) is an explicit runner of align_pairs, never a silent
+    stand-in for the engine."""
     from telr_tpu_torch.io import native
     if not native.has_banded_dp():
         raise RuntimeError(
@@ -387,7 +432,8 @@ def _native_dp():
     return native.banded_dp_batch
 
 
-def align_pairs(items, want_cigar: bool = True, cigar_arrays: bool = False):
+def align_pairs(items, runner=None, want_cigar: bool = True,
+                cigar_arrays: bool = False):
     """Batched align_pair: one native batch per shape bucket instead of
     one call per piece.
 
@@ -395,6 +441,11 @@ def align_pairs(items, want_cigar: bool = True, cigar_arrays: bool = False):
     arguments.  Jobs are grouped by (mode, width, Lq-bucket, Lt-bucket,
     params) and each group runs as exact-size batches bounded by dirs
     memory; numerics are identical to per-piece align_pair.
+
+    runner: optional override with banded_dp_batch's calling convention,
+    numpy in and numpy out — the hook dist/exec.py uses to run the same
+    batches on the mesh's devices (stage-1 data parallelism over the "reads"
+    axis).  Without one the batches go to the native engine.
 
     Returns one align_pair-style result dict per item."""
     results: List[Optional[dict]] = [None] * len(items)
@@ -412,7 +463,7 @@ def align_pairs(items, want_cigar: bool = True, cigar_arrays: bool = False):
         groups.setdefault(key, []).append((i, q_pad, t_pad, off_pad, lq, lt))
     if not groups:
         return results
-    run = _native_dp()
+    run = runner if runner is not None else _native_dp()
     for (mode, w, lq_b, lt_b, ptuple), jobs in groups.items():
         chunk = min(_MAX_BATCH, max(1, _MAX_BATCH_CELLS // (lq_b * w)))
         for c0 in range(0, len(jobs), chunk):
@@ -432,6 +483,11 @@ def align_pairs(items, want_cigar: bool = True, cigar_arrays: bool = False):
             dirs, gscore, best, besti, bestp = run(
                 qb, tb, ob, ql, tl, width=w, mode=mode,
                 params_tuple=ptuple)
+            dirs = np.asarray(dirs)
+            gscore = np.asarray(gscore)
+            best = np.asarray(best)
+            besti = np.asarray(besti)
+            bestp = np.asarray(bestp)
             for r, (i, _q, _t, off_pad, lq, lt) in enumerate(part):
                 results[i] = _finish_pair(
                     dirs[r], gscore[r], best[r], besti[r], bestp[r],

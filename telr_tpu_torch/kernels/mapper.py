@@ -70,12 +70,15 @@ class Aligner:
 
     def __init__(self, targets: SeqDict, preset: AlignPreset,
                  max_occ: int = 512, use_wavefront: bool = False,
-                 device=None):
+                 device=None, mesh=None):
         self.targets = targets
         self.preset = preset
         self.use_wavefront = use_wavefront
         # kept as a string so pool workers unpickle it without torch
         self.device = None if device is None else str(device)
+        # dist.mesh.Mesh: run the host-engine DP batches on the mesh's
+        # devices instead, sharded over "reads"
+        self.mesh = mesh
         self.index = MinimizerIndex.build(targets, preset.k, preset.w,
                                           max_occ=max_occ)
         self._tcodes = {s.name: s.codes for s in targets}
@@ -359,10 +362,11 @@ class Aligner:
 
     # ------------------------------------------------------------------
     def __getstate__(self):
-        # picklable snapshot for pool workers: the worker pool itself is
-        # parent-only
+        # picklable snapshot for pool workers: a Mesh's devices belong to
+        # the parent, and the worker pool itself is parent-only
         d = dict(self.__dict__)
         d["_pool"] = None
+        d["mesh"] = None
         return d
 
     def _worker_pool(self, processes: int):
@@ -394,7 +398,8 @@ class Aligner:
         are independent, so output is identical to map_batch."""
         from telr_tpu_torch.io import native
         small = len(queries) < max(16, 2 * processes)
-        if self.use_wavefront and processes > 1 and not small:
+        if self.use_wavefront and self.mesh is None and processes > 1 \
+                and not small:
             # device path: fan out the HOST PLANNING only (seeding/
             # chaining — numpy + native C++ in the workers); the device
             # DP dispatch stays in the parent, the one process that
@@ -405,7 +410,8 @@ class Aligner:
             return map_batch_grouped([(self, queries)],
                                      max_hits=max_hits,
                                      plans=[plans])[0]
-        if (processes <= 1 or small or self.use_wavefront
+        if (processes <= 1 or small
+                or self.use_wavefront or self.mesh is not None
                 # without the native DP the worker path has no DP at all
                 or not native.has_banded_dp()):
             return self.map_batch(queries, max_hits=max_hits)
@@ -427,9 +433,9 @@ _EXT_DIRECT_MAX = 768  # extensions at most this long skip the chunking
 _WAVE_MIN_CELLS = 256_000_000
 
 
-def _run_ext_round_cpu(jobs):
+def _run_ext_round_cpu(jobs, runner=None):
     items = [(q, t, dp.EXTEND, params, None, None) for q, t, params in jobs]
-    return dp.align_pairs(items, cigar_arrays=True)
+    return dp.align_pairs(items, runner=runner, cigar_arrays=True)
 
 
 def _run_ext_round_wave(jobs, device=None):
@@ -540,6 +546,7 @@ def _dispatch_pieces(groups, jobs, piece_results, job_ids=None):
     wave_ext_items: list = []   # same, wavefront backend
     wave_ext_slots: list = []
     wave_ext_device = None
+    runner = None
     for ji in (range(len(jobs)) if job_ids is None else job_ids):
         (gi, *_x, pieces) = jobs[ji]
         al = groups[gi][0]
@@ -566,6 +573,9 @@ def _dispatch_pieces(groups, jobs, piece_results, job_ids=None):
                 wave_buckets.setdefault(key, []).append((ji, tag, q, t,
                                                          guide, width))
         else:
+            if al.mesh is not None:
+                from telr_tpu_torch.dist.exec import sharded_dp_runner
+                runner = sharded_dp_runner(al.mesh)
             for tag, (q, t, mode, width, guide) in pieces.items():
                 if mode == dp.EXTEND and len(q) > _EXT_DIRECT_MAX:
                     ext_items.append((q, t, params))
@@ -596,13 +606,14 @@ def _dispatch_pieces(groups, jobs, piece_results, job_ids=None):
         wave_ext_items, wave_ext_slots = [], []
     if cpu_items:
         for (ji, tag), res in zip(cpu_slots,
-                                  dp.align_pairs(cpu_items,
+                                  dp.align_pairs(cpu_items, runner=runner,
                                                  cigar_arrays=True)):
             piece_results[ji][tag] = res
     if ext_items:
+        import functools
+        run = functools.partial(_run_ext_round_cpu, runner=runner)
         for (ji, tag), res in zip(ext_slots,
-                                  _extend_chunked(ext_items,
-                                                  _run_ext_round_cpu)):
+                                  _extend_chunked(ext_items, run)):
             piece_results[ji][tag] = res
     if wave_ext_items:
         import functools

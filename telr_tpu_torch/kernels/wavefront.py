@@ -1,6 +1,6 @@
 """Wavefront (anti-diagonal) banded affine-gap DP — schedule + reference.
 
-The row-oriented banded DP (dp.py / pallas_dp.py) needs dynamic band shifts
+The row-oriented banded DP (dp.py / hopper_dp.py) needs dynamic band shifts
 and an intra-row max-plus scan.  Re-indexing the DP by anti-diagonals
 removes both:
 

@@ -14,7 +14,11 @@ and in-memory records as the ABI instead of intermediate files:
 
 One process drives one device: the stages routed to the wavefront kernels
 (cli.AUTO_WAVEFRONT_STAGES under auto routing) and the assembly vote run on
-the `device` handed to run_pipeline.
+the `device` handed to run_pipeline.  With a `mesh` (dist/mesh.py) the
+stage-1 DP batches that stay off the wavefront route run on the mesh's
+devices instead of the native host engine, every (locus, read) payload goes
+through the locus all-to-all before assembly, and AF depth is reduced over
+the mesh.
 """
 
 from __future__ import annotations
@@ -45,6 +49,70 @@ from telr_tpu_torch.utils.checkpoint import Checkpointer
 from telr_tpu_torch.utils.evallog import LociEval
 
 logger = logging.getLogger("telr_tpu")
+
+
+def _redistribute_loci(mesh, records: List[SVRecord], reads: SeqDict,
+                       extra_voters: Dict[str, List[str]]
+                       ) -> "SeqDict":
+    """Route every (locus, read) PAYLOAD through the device all-to-all to
+    its locus' owner shard and rebuild the assembly-stage read set from
+    what the owner received (SURVEY §2c locus redistribution; replaces
+    the reference's csplit per-locus read files TELR_assembly.py:418-456).
+
+    Items are (locus_id, rank, kind, read_codes) — kind 0 = supporting
+    read (rank indexes rec.reads), kind 1 = extra voter (rank indexes
+    extra_voters[locus]).  Source shard = crc32(read name) mod S (the
+    data-parallel read layout), owner = locus_id mod S.  Assembly then
+    consumes ONLY the received codes: on a single host they must
+    reproduce the local reads bit-for-bit — a routing or payload bug
+    surfaces as a hard error, so the collective is load-bearing, not
+    decorative."""
+    import zlib
+
+    import numpy as np
+
+    from telr_tpu_torch.dist.mesh import READS_AXIS
+    from telr_tpu_torch.dist.redistribute import owner_of, redistribute_payloads
+    from telr_tpu_torch.io.seqs import Sequence
+
+    n = int(mesh.shape[READS_AXIS])
+    items_per_shard: List[List[tuple]] = [[] for _ in range(n)]
+    name_of: Dict[tuple, str] = {}
+    for li, rec in enumerate(records):
+        for kind, names in ((0, rec.reads),
+                            (1, extra_voters.get(rec.locus_name, []))):
+            for rank, rn in enumerate(names):
+                src = zlib.crc32(rn.encode()) % n
+                items_per_shard[src].append(
+                    (li, rank, kind, reads[rn].codes))
+                name_of[(li, rank, kind)] = rn
+    n_items = sum(len(x) for x in items_per_shard)
+    if n_items == 0:
+        return reads
+    merged = redistribute_payloads(mesh, items_per_shard)
+    got: Dict[tuple, np.ndarray] = {}
+    for dst, lst in enumerate(merged):
+        for li, rank, kind, codes in lst:
+            if owner_of(li, n) != dst:
+                raise RuntimeError(
+                    f"locus {li} landed on shard {dst}, owner is "
+                    f"{owner_of(li, n)}")
+            got[(li, rank, kind)] = codes
+    if set(got) != set(name_of):
+        raise RuntimeError("locus redistribution dropped or duplicated "
+                           "(locus, read) items")
+    rebuilt = SeqDict()
+    for key, codes in got.items():
+        rn = name_of[key]
+        if not np.array_equal(codes, reads[rn].codes):
+            raise RuntimeError(
+                f"locus redistribution corrupted read payload for {rn}")
+        if rn not in rebuilt:
+            rebuilt.add(Sequence(name=rn, codes=codes))
+    logger.info("locus all-to-all: %d payload items (%d unique reads), "
+                "%d loci over %d shards", n_items, len(rebuilt),
+                len(records), n)
+    return rebuilt
 
 
 def _input_fingerprint(paths, config: TELRConfig) -> str:
@@ -97,9 +165,15 @@ def run_pipeline(
     sample_name: Optional[str] = None,
     checkpoint_dir: Optional[str] = None,
     device=None,
+    mesh=None,
 ) -> PipelineResult:
     """device: where the wavefront DP kernels and the assembly vote run
-    (None: the CUDA card when there is one, else the CPU)."""
+    (None: the CUDA card when there is one, else the CPU).
+
+    mesh: optional dist.mesh.Mesh with a "reads" axis.  When given,
+    stage-1 DP batches execute sharded over the mesh, candidate loci are
+    redistributed with the device all-to-all before assembly, and AF depth
+    reductions are summed over the "reads" axis."""
     from telr_tpu_torch.utils.procpool import ensure_forkserver
     ensure_forkserver()   # before CUDA starts threads (see procpool.py)
     from telr_tpu_torch.utils.device import resolve
@@ -175,7 +249,7 @@ def run_pipeline(
                                                 chain_prune_frac=0.5)
             aligner = Aligner(reference, stage1_preset,
                               use_wavefront=config.wavefront_for("alignment"),
-                              device=device)
+                              device=device, mesh=mesh)
             result = aligner.map_batch_parallel(
                 {s.name: s.codes for s in reads}, config.threads)
             alns = [a for hits in result.values() for a in hits]
@@ -213,6 +287,19 @@ def run_pipeline(
     # non-support reads overlapping each locus polish the flank
     # columns to full local depth (the other haplotype + flank-only
     # reads; assemble_all guards against deletion-of-the-TE votes)
+    assembly_reads = reads
+    extra_voters = None
+    if mesh is not None and records and not ckpt.has("assembly"):
+        with timed("locus_redistribute"):
+            # device all-to-all: co-locate each locus' read PAYLOADS
+            # (support + voter codes) on its owner shard before batched
+            # assembly (SURVEY §2c); assembly consumes only the received
+            # codes
+            extra_voters = collect_extra_voters(
+                records, store, config.assembly.window)
+            assembly_reads = _redistribute_loci(mesh, records, reads,
+                                                extra_voters)
+
     with timed("assembly"):
         if ckpt.has("assembly"):
             contigs, extra = ckpt.load_seqs("assembly")
@@ -220,10 +307,11 @@ def run_pipeline(
             logger.info("assembly stage restored from checkpoint")
             restored_stages.append("assembly")
         else:
-            extra_voters = collect_extra_voters(
-                records, store, config.assembly.window)
+            if extra_voters is None:
+                extra_voters = collect_extra_voters(
+                    records, store, config.assembly.window)
             contigs, passed = assemble_all(
-                records, reads, config.read_preset,
+                records, assembly_reads, config.read_preset,
                 config.assembly, loci_eval,
                 use_wavefront=config.wavefront_for("assembly"),
                 extra_voters=extra_voters, device=device)
@@ -247,7 +335,8 @@ def run_pipeline(
     with timed("allele_frequency"):
         te_freq = estimate_af(records, contigs, contig_te, reads, store,
                               config.read_preset, config.af, config.assembly,
-                              use_wavefront=config.wavefront_for("af"))
+                              use_wavefront=config.wavefront_for("af"),
+                              mesh=mesh)
 
     with timed("ref_repeatmask"):
         # checkpointed: depends only on (reference, library), and the

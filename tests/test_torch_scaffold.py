@@ -32,9 +32,8 @@ KNOWN_DIFFS = {
                     "engine; the version is the same", 40),
     "io/native.py": ("log messages and docstrings name the XLA-scan DP "
                      "fallback, which the port does not have", 16),
-    "af/freq.py": ("the mesh branch imports telr_tpu.dist.exec; dist/ is "
-                   "not ported, so the branch raises NotImplementedError",
-                   8),
+    "kernels/wavefront.py": ("the docstring names the port's row-banded DP "
+                             "module, hopper_dp.py, not pallas_dp.py", 2),
     "assembly/local.py": ("the pipeline's device argument threads through "
                           "to the Aligner and the vote; a docstring drops "
                           "TPU wording", 24),
@@ -88,6 +87,8 @@ def test_port_never_imports_jax():
         "f = 'README.md'\n"
         "args = cli.get_args(['-i', f, '-r', f, '-l', f])\n"
         "cli.config_from_args(args)\n"
+        "assert cli.get_args(['-i', f, '-r', f, '-l', f, '--mesh_devices', "
+        "'4']).mesh_devices == 4\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'telr_tpu' not in sys.modules, 'telr_tpu imported'\n"
         "print('ok')\n")
@@ -97,8 +98,9 @@ def test_port_never_imports_jax():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
-@pytest.mark.parametrize("flag", [["--mesh_devices", "2"],
-                                  ["--profile_dir", "trace"]])
+@pytest.mark.parametrize("flag", [["--profile_dir", "trace"],
+                                  ["--profile_dir", "trace",
+                                   "--mesh_devices", "2"]])
 def test_unported_flags_raise(flag, tmp_path):
     from telr_tpu_torch import cli
     f = tmp_path / "x.fa"
@@ -107,6 +109,30 @@ def test_unported_flags_raise(flag, tmp_path):
             str(tmp_path / "out")] + flag
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(argv)
+
+
+def test_cli_builds_the_mesh(monkeypatch, tmp_path):
+    """--mesh_devices N hands run_pipeline an N-shard mesh on the run's
+    device (CPU shards here, where there is no card)."""
+    import torch
+
+    from telr_tpu_torch import cli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    seen = {}
+
+    def fake_run(*args, **kw):
+        seen.update(kw)
+
+    monkeypatch.setattr(cli, "run_pipeline", fake_run)
+    f = tmp_path / "x.fa"
+    f.write_text(">a\nACGT\n")
+    base = ["-i", str(f), "-r", str(f), "-l", str(f), "-o",
+            str(tmp_path / "out")]
+    cli.main(base)
+    assert seen["mesh"] is None
+    cli.main(base + ["--mesh_devices", "4", "--wavefront", "off"])
+    assert seen["mesh"].shape == {"reads": 4, "loci": 1}
+    assert all(d.type == "cpu" for d in seen["mesh"].flat_devices())
 
 
 def test_auto_routing_follows_cuda(monkeypatch):
