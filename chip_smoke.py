@@ -18,21 +18,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                the 1024 bucket, W = 512), a region batch (64 related pairs of
                1.5-3.5 kb in the 4096 bucket, W = 128) and a wide band
                (W = 2048).  Each scores-only instance against its traceback
-               instance; kernel and plain times, and the copy of the
-               row-banded direction bytes to the host;
-  4. dist      the score steps, the sharded runner, the depth reduction and
-               the locus all-to-all on a one-card mesh, against the plain
+               instance.  The row-banded walk on those direction bytes
+               against its plain version and against the native host walk
+               (ops, start and end cell, band margin, bad flag).  Kernel and
+               plain times, and what a launch sends to the host: the packed
+               walks, against the direction bytes the host walk needed;
+  4. dist      the score steps, the sharded runner (its direction bytes, and
+               align_pairs through its device walks against the native
+               engine's align_pairs, both cigar forms), the depth reduction
+               and the locus all-to-all on a one-card mesh, against the plain
                version, AlignmentStore.coverage and the owner rule;
-  5. pipeline  the CLI (default auto routing) on a simulated genome (by
-               default 3 Mb at 30x with 10 planted insertions, seed 3, from
-               tools/genome_eval.py's generators): stage seconds, peak device
-               memory, precision / recall / F1 against the planted truth.
+  5. pipeline  the CLI (--device cuda, default auto routing) on a simulated
+               genome (--size: by default 3 Mb at 30x with 10 planted
+               insertions, seed 3, from tools/genome_eval.py's generators):
+               stage seconds, launches by shape, peak device memory,
+               precision / recall / F1 against the planted truth.
                Fails if a wavefront kernel was not launched, the vote did not
                run on the card, an output file is missing or F1 < 0.8;
   6. pipeline-mesh  the CLI with --mesh_devices 1 --wavefront off on the
                same genome: the same checks, plus the locus_redistribute
-               stage, row-banded launches and the depth reduction on the
-               card; then at 300 kb the mesh run's output files byte for
+               stage, row-banded DP and walk launches (by shape), the bytes
+               stage 1 copied back from the card and the depth reduction on
+               the card; then at 300 kb the mesh run's output files byte for
                byte against a --wavefront off run without a mesh (the
                native host engine).
 
@@ -69,6 +76,8 @@ KERNELS = {
                        "telr_tpu/kernels/pallas_wavefront.py:939"),
     "rowband_dp": ("telr_tpu_torch/csrc/rowband_dp.cu",
                    "telr_tpu/kernels/pallas_dp.py:53"),
+    "rowband_walk": ("telr_tpu_torch/csrc/rowband_walk.cu",
+                     "telr_tpu/kernels/dp.py:379"),
 }
 
 # The least time the card could take (`bounds`).  Memory rate: the H100
@@ -170,9 +179,12 @@ def extend_round_case(seed=1):
 
 def _timed(fn, reps, device):
     """Mean milliseconds of fn() over reps runs on the card (CUDA events,
-    after one warm-up run)."""
+    after two warm-up runs: the loop holds one result while the next is
+    made, so the allocator must have cached two sets of outputs before the
+    clock starts)."""
     import torch
-    fn()
+    out = fn()
+    out = fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize(device)
@@ -204,6 +216,7 @@ def check_case(name, width, mode, pairs, guides, device, reps=3):
     """One batch through both kernels and both plain versions on `device`;
     raises on any difference.  Returns the per-kernel timings and errors."""
     import torch
+    from telr_tpu_torch.kernels import cuda_lib
     from telr_tpu_torch.kernels import hopper_wavefront as hw
     from telr_tpu_torch.kernels.dp import DPParams
     params = DPParams()
@@ -235,11 +248,19 @@ def check_case(name, width, mode, pairs, guides, device, reps=3):
                              "bytes differ from the plain version")
     dp_err = max(_max_err(zip(k_out[:4], p_out[:4])), dirs_err)
 
-    g2, b2 = hw.wavefront_dp(meta, init, scal, n, width, mode, params,
-                             tb=False)
-    if not (torch.equal(g2, k_out[0]) and torch.equal(b2, k_out[1])):
-        raise AssertionError(f"{name} mode {mode}: the scores-only DP "
-                             "differs from the traceback DP")
+    # every lanes-a-thread choice the wrapper can make, both instances,
+    # against the one it made for this batch
+    for lanes in cuda_lib.cell_options("wavefront_dp", width):
+        o = hw.wavefront_dp(meta, init, scal, n, width, mode, params,
+                            tb=True, lanes=lanes)
+        o2 = hw.wavefront_dp(meta, init, scal, n, width, mode, params,
+                             tb=False, lanes=lanes)
+        if not (all(torch.equal(a, b) for a, b in zip(o[:4], k_out[:4]))
+                and all(torch.equal(a, b) for a, b in zip(o2, k_out[:2]))
+                and _max_err([(o[4], k_out[4])], rows) == 0):
+            raise AssertionError(f"{name} mode {mode}: wavefront_dp at "
+                                 f"{lanes} lanes a thread differs")
+        del o, o2
     sc_ms, _ = _timed(lambda: hw.wavefront_dp(
         meta, init, scal, n, width, mode, params, tb=False), reps, device)
 
@@ -271,6 +292,8 @@ def check_case(name, width, mode, pairs, guides, device, reps=3):
                         WALK_OPS_PER_STEP * steps)
     return {"case": name, "width": width, "mode": mode, "pairs": n,
             "S_pad": S_pad, "cells": cells,
+            "lanes": cuda_lib.pick_cells(
+                width, n, cuda_lib.cell_options("wavefront_dp", width)),
             "dp_bound_ms": dp_bound[0], "dp_bound_by": dp_bound[1],
             "dp_scores_bound_ms": sc_bound[0],
             "dp_scores_bound_by": sc_bound[1],
@@ -361,7 +384,7 @@ def check_rowband(name, width, mode, arrays, device, reps=3):
     plain version on `device`; raises on any difference.  Returns timings,
     errors and the kernel's bounds for this batch."""
     import torch
-    from telr_tpu_torch.kernels import hopper_dp
+    from telr_tpu_torch.kernels import cuda_lib, hopper_dp
     from telr_tpu_torch.kernels.dp import DPParams
     ptuple = DPParams().tuple()
     dts = (torch.int8, torch.int8, torch.int32, torch.int32, torch.int32)
@@ -400,13 +423,29 @@ def check_rowband(name, width, mode, arrays, device, reps=3):
         if not (torch.equal(a, b) and torch.equal(a, c)):
             raise AssertionError(f"{name} mode {mode}: the scores-only "
                                  "instance differs")
+    # every cells-a-thread choice the wrapper can make, both instances,
+    # against the one it made for this batch
+    for cells_opt in cuda_lib.cell_options("rowband_dp", width):
+        o = hopper_dp.rowband_dp(q, t, off, qlen, tlen, tb=True,
+                                 cells=cells_opt, **kw)
+        o2 = hopper_dp.rowband_dp(q, t, off, qlen, tlen, tb=False,
+                                  cells=cells_opt, **kw)
+        if not (all(torch.equal(a, b) for a, b in zip(o[1:], k_out[1:]))
+                and all(torch.equal(a, b) for a, b in zip(o2, k_sc))
+                and _max_err([(o[0], k_out[0])], rows) == 0):
+            raise AssertionError(f"{name} mode {mode}: rowband_dp at "
+                                 f"{cells_opt} cells a thread differs")
+        del o, o2
     err = max(err, _max_err(list(zip(k_out[1:], p_out[1:]))
                             + list(zip(k_sc, p_sc))))
-    # the copy the mesh runner makes for the host traceback
+    # what the mesh runner copied for the host traceback before the walk
+    # ran on the card
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    k_out[0].cpu()
+    dirs_host = k_out[0].cpu().numpy()
     d2h_ms = (time.perf_counter() - t0) * 1e3
+    walk = check_rowband_walk(name, mode, k_out, off, qlen, tlen,
+                              t.shape[1], dirs_host, device, reps)
     # bounds: inputs read once, outputs written once (direction bytes of
     # the rows each pair has), operations per cell of those rows
     n_rows = int(torch.minimum(qlen, torch.tensor(Lq, device=device)).sum())
@@ -417,12 +456,77 @@ def check_rowband(name, width, mode, arrays, device, reps=3):
     sc_bound = bounds(in_bytes + 8 * B, ROWBAND_OPS[False] * cells)
     return {"case": name, "width": width, "mode": mode, "pairs": B,
             "Lq": Lq, "Lt": t.shape[1], "cells": cells,
+            "cells_a_thread": cuda_lib.pick_cells(
+                width, B, cuda_lib.cell_options("rowband_dp", width)),
             "tb_ms": tb_ms, "tb_plain_ms": plain_ms,
             "tb_bound_ms": tb_bound[0], "tb_bound_by": tb_bound[1],
             "scores_ms": sc_ms, "scores_plain_ms": plain_sc_ms,
             "scores_bound_ms": sc_bound[0], "scores_bound_by": sc_bound[1],
             "dirs_to_host_ms": d2h_ms, "dirs_bytes": k_out[0].numel(),
-            "err": err}
+            "err": err, **walk}
+
+
+def check_rowband_walk(name, mode, dp_out, off, qlen, tlen, lt, dirs_host,
+                       device, reps):
+    """rowband_walk on one batch's direction bytes against its plain version
+    (every output byte) and against the native host walk on the same bytes
+    (ops, start and end cell, margin, bad); raises on any difference."""
+    import torch
+    from telr_tpu_torch.io import native
+    from telr_tpu_torch.kernels import hopper_dp as hd
+    from telr_tpu_torch.kernels.dp import GLOBAL
+    args = (dp_out[0], off, qlen, tlen) + tuple(dp_out[1:])
+    ms, (packed, small) = _timed(
+        lambda: hd.rowband_walk(*args, lt=lt, mode=mode), reps, device)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    # the kernel leaves dirs rows past qlen unwritten and no walk reads them
+    ppacked, psmall = hd._rowband_walk_plain(
+        *args, hd.walk_steps(dp_out[0].shape[1], lt), mode)
+    torch.cuda.synchronize(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(packed, ppacked) and torch.equal(small, psmall)):
+        raise AssertionError(f"{name} mode {mode}: rowband_walk differs from "
+                             "the plain version")
+    pk, sm = packed.cpu().numpy(), small.cpu().numpy()
+    offsets, ops, lens = native.wave_decode_batch(
+        pk.T, sm[hd.WALK_EI], sm[hd.WALK_EJ], sm[hd.WALK_BAD], False)
+    off_h, ql_h, tl_h = (x.cpu().numpy() for x in (off, qlen, tlen))
+    besti, bestp = (x.cpu().numpy() for x in dp_out[3:5])
+    n_bad = 0
+    for r in range(pk.shape[0]):
+        if mode == GLOBAL:
+            si, sj = int(ql_h[r]), int(tl_h[r])
+        else:
+            si = int(besti[r])
+            sj = int(bestp[r]) + (int(off_h[r, si]) if si > 0 else 0)
+        try:
+            (hops, hlens), ei, ej, margin = native.traceback_arrays(
+                dirs_host[r], off_h[r], si, sj, mode, int(tl_h[r]))
+        except RuntimeError:
+            if not sm[hd.WALK_BAD, r]:
+                raise AssertionError(f"{name} mode {mode} pair {r}: the host "
+                                     "walk fails, the device walk does not")
+            n_bad += 1
+            continue
+        got = (ops[offsets[r]:offsets[r + 1]], lens[offsets[r]:offsets[r + 1]])
+        same = (np.array_equal(got[0], hops) and np.array_equal(got[1], hlens)
+                and tuple(sm[[hd.WALK_EI, hd.WALK_EJ, hd.WALK_BAD, hd.WALK_SI,
+                              hd.WALK_SJ, hd.WALK_MARGIN], r])
+                == (ei, ej, 0, si, sj, margin))
+        if not same:
+            raise AssertionError(f"{name} mode {mode} pair {r}: rowband_walk "
+                                 "differs from the native host walk")
+    # one direction byte and one offset read per op walked, the packed ops
+    # and the scalar stack written
+    steps = int(lens.sum())
+    out_bytes = packed.numel() + small.numel() * 4
+    bound = bounds(5 * steps + out_bytes, WALK_OPS_PER_STEP * steps)
+    return {"walk_ms": ms, "walk_plain_ms": plain_ms,
+            "walk_bound_ms": bound[0], "walk_bound_by": bound[1],
+            "walk_steps": steps, "walk_bad": n_bad,
+            "walk_err": _max_err([(packed, ppacked), (small, psmall)]),
+            "walk_bytes_to_host": out_bytes}
 
 
 def phase_rowband_parity(device):
@@ -507,6 +611,38 @@ def phase_dist(device):
     launches = hopper_dp.rowband_dp.launches
     if score_launches != 4 or launches != 5:
         raise AssertionError(f"expected 4 + 1 launches, saw {launches}")
+    # align_pairs through the runner's device walks against the native
+    # engine's align_pairs: the result dicts, both cigar forms
+    par = dp.DPParams()
+    ap_items = []
+    for k in range(48):
+        lq = int(rng.integers(200, 1500))
+        qq, tt = _related(rng, lq, lq + int(rng.integers(0, 300)), lq // 8,
+                          indel=int(rng.integers(0, 40)))
+        ap_items.append((qq, tt, k % 3, par, None, None))
+    qq, tt = _related(rng, 2600, 3300, 260, indel=400)
+    anchors = np.arange(256, 800, 256)
+    ap_items.append((qq, tt, dp.GLOBAL, par, 1024, dp.offsets_from_path(
+        len(qq), len(tt), 1024, anchors, anchors)))
+    ap_items.append((qq[:4], np.zeros(0, np.int8), dp.GLOBAL, par, None, None))
+    runner = dexec.sharded_dp_runner(mesh)
+    hopper_dp.rowband_walk.launches = 0
+    for arrays in (False, True):
+        want = dp.align_pairs(ap_items, cigar_arrays=arrays)
+        got = dp.align_pairs(ap_items, runner=runner, cigar_arrays=arrays)
+        for k, (w, g) in enumerate(zip(want, got)):
+            same = set(w) == set(g) and all(
+                (all(np.array_equal(a, b) for a, b in zip(w[key], g[key]))
+                 if key == "cigar" and arrays else w[key] == g[key])
+                for key in w)
+            if not same:
+                raise AssertionError(f"align_pairs item {k} (cigar_arrays="
+                                     f"{arrays}) differs between the walk "
+                                     "runner and the native engine")
+    walk_launches = hopper_dp.rowband_walk.launches
+    if walk_launches == 0 or \
+            hopper_dp.rowband_dp.launches != launches + walk_launches:
+        raise AssertionError("the walk runner did not launch a walk per DP")
     # depth reduction against AlignmentStore.coverage
     from telr_tpu_torch.config import MAP_PB
     from telr_tpu_torch.io.seqs import Sequence, SeqDict
@@ -543,7 +679,9 @@ def phase_dist(device):
         raise AssertionError("redistribute_payloads round trip differs")
     print(f"dist: score steps, runner, depth ({len(alns)} alignments, peak "
           f"depth {int(cov.max())}) and all-to-all ({len(want)} payloads) "
-          f"agree on {mesh}; row-banded launches {launches}", flush=True)
+          f"agree on {mesh}; row-banded launches {launches}, then "
+          f"{walk_launches} DP + walk launches for {len(ap_items)} align_pairs "
+          "items in both cigar forms", flush=True)
     return score_launches
 
 
@@ -581,19 +719,25 @@ def simulate(workdir, size, coverage, n_ins, seed):
 
 def run_cli(device, inputs, out, threads, coverage, extra=()):
     """One run of the port's CLI with every launch count set to 0 just
-    before it.  Returns the result, the kernels' launch counts, the vote and
-    depth-reduction device counts, wall seconds and peak device bytes."""
+    before it.  Returns the result, the kernels' launch counts (and, under
+    "shapes", launches by shape and the bytes the mesh runner copied back
+    from the card), the vote and depth-reduction device counts, wall seconds
+    and peak device bytes."""
     import torch
     from telr_tpu_torch import cli
     from telr_tpu_torch.assembly.device_vote import vote_many
-    from telr_tpu_torch.dist.exec import mesh_coverage
+    from telr_tpu_torch.dist.exec import mesh_coverage, sharded_dp_runner
+    from telr_tpu_torch.dist.mesh import make_mesh
     from telr_tpu_torch.kernels import hopper_dp
     from telr_tpu_torch.kernels import hopper_wavefront as hw
     from telr_tpu_torch.utils import hoststats
     reads, ref, lib = inputs
     argv = ["-i", reads, "-r", ref, "-l", lib, "-o", out, "-t", str(threads),
+            "--device", "cuda",
             # tools/genome_eval.py's setting: max(3, coverage // 8)
             "--min_support", str(max(3, coverage // 8))] + list(extra)
+    # the runner of the one-card mesh the CLI builds (one per equal mesh)
+    runner = sharded_dp_runner(make_mesh(1, device="cuda"))
     # run_pipeline's logging.basicConfig opens this run's TELR.log only when
     # the root logger has no handler left from an earlier run
     for h in logging.root.handlers[:]:
@@ -604,6 +748,10 @@ def run_cli(device, inputs, out, threads, coverage, extra=()):
     hw.wavefront_dp.launches = 0
     hw.wavefront_walk.launches = 0
     hopper_dp.rowband_dp.launches = 0
+    hopper_dp.rowband_walk.launches = 0
+    hw.wavefront_dp.shapes.clear()
+    hopper_dp.rowband_dp.shapes.clear()
+    runner.bytes_to_host = 0
     vote_many.device_calls.clear()
     mesh_coverage.device_calls.clear()
     torch.cuda.reset_peak_memory_stats(device)
@@ -613,10 +761,31 @@ def run_cli(device, inputs, out, threads, coverage, extra=()):
     wall = time.perf_counter() - t0
     launches = {"wavefront_dp": hw.wavefront_dp.launches,
                 "wavefront_walk": hw.wavefront_walk.launches,
-                "rowband_dp": hopper_dp.rowband_dp.launches}
-    return (res, launches, dict(vote_many.device_calls),
+                "rowband_dp": hopper_dp.rowband_dp.launches,
+                "rowband_walk": hopper_dp.rowband_walk.launches,
+                "runner_bytes_to_host": runner.bytes_to_host}
+    shapes = {"wavefront_dp": dict(hw.wavefront_dp.shapes),
+              "rowband_dp": dict(hopper_dp.rowband_dp.shapes)}
+    return (res, launches, shapes, dict(vote_many.device_calls),
             dict(mesh_coverage.device_calls), wall,
             torch.cuda.max_memory_allocated(device))
+
+
+def shape_lines(shapes, fields):
+    """Launches by shape, pairs per launch summed up: one line per shape
+    without its pair count, most launches first."""
+    groups = {}
+    for key, count in shapes.items():
+        groups.setdefault(key[:-1], []).extend([key[-1]] * count)
+    lines = []
+    for key, pairs in sorted(groups.items(), key=lambda kv: -len(kv[1])):
+        pairs.sort()
+        what = ", ".join(f"{f} {v}" for f, v in zip(fields, key))
+        n = len(pairs)
+        lines.append(f"{what}: {n} launches, pairs a launch min {pairs[0]} "
+                     f"quartiles {pairs[n // 4]} {pairs[n // 2]} "
+                     f"{pairs[3 * n // 4]} max {pairs[-1]} sum {sum(pairs)}")
+    return lines
 
 
 def phase_pipeline(device, size, coverage, n_ins, seed, threads, mesh=False):
@@ -633,7 +802,7 @@ def phase_pipeline(device, size, coverage, n_ins, seed, threads, mesh=False):
               f"({n_bases / 1e6:.1f} Mb) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         out = os.path.join(work, "out")
-        res, launches, votes, depth, wall, peak = run_cli(
+        res, launches, shapes, votes, depth, wall, peak = run_cli(
             device, inputs, out, threads, coverage, extra)
         missing = [x for x in OUTPUTS
                    if not os.path.isfile(os.path.join(out, "reads.telr."
@@ -652,11 +821,33 @@ def phase_pipeline(device, size, coverage, n_ins, seed, threads, mesh=False):
           f"{json.dumps(depth)}")
     for ln in breakdown:
         print(f"{tag}: " + ln)
+    for ln in shape_lines(shapes["wavefront_dp"], ("W", "mode", "S_pad")):
+        print(f"{tag}: wavefront_dp " + ln)
+    for ln in shape_lines(shapes["rowband_dp"],
+                          ("W", "Lq", "Lt", "mode", "tb")):
+        print(f"{tag}: rowband_dp " + ln)
+    if mesh:
+        print(f"{tag}: stage 1 copied {launches['runner_bytes_to_host']} "
+              f"bytes from the card to the host in {launches['rowband_dp']} "
+              "launches (the packed walks and their scalars)")
+        # a pair's packed walk has one slot per step of its padded matrix
+        # and eight int32 scalars, however short the walk
+        from telr_tpu_torch.kernels.hopper_dp import walk_steps
+        by_size = {}
+        for (_w, lq, lt, _mode, tb, pairs), count in \
+                shapes["rowband_dp"].items():
+            if tb:
+                by_size[(lq, lt)] = by_size.get((lq, lt), 0) + count * pairs \
+                    * (walk_steps(lq, lt) // 4 + 32)
+        print(f"{tag}: of these, by padded (Lq, Lt): " + ", ".join(
+            f"{k}: {v}" for k, v in sorted(by_size.items(),
+                                           key=lambda kv: -kv[1])))
     print(f"{tag}: {len(res.final_report)} calls, precision "
           f"{score['precision']} recall {score['recall']} F1 {score['f1']} "
           f"(tp {score['tp']} fp {score['fp']} fn {score['fn']})",
           flush=True)
-    on_path = ("rowband_dp",) if mesh else ("wavefront_dp", "wavefront_walk")
+    on_path = (("rowband_dp", "rowband_walk") if mesh
+               else ("wavefront_dp", "wavefront_walk"))
     for k in on_path:
         if launches[k] == 0:
             raise AssertionError(f"the {tag} run never launched {k}")
@@ -689,7 +880,7 @@ def phase_mesh_identity(device, coverage, n_ins, seed, threads,
                                       "--wavefront", "off"]),
                             ("host", ["--wavefront", "off"])):
             outs[name] = os.path.join(work, name)
-            _res, launches, _v, _d, wall, _peak = run_cli(
+            _res, launches, _shapes, _v, _d, wall, _peak = run_cli(
                 device, inputs, outs[name], threads, coverage, extra)
             print(f"mesh-identity: {name} run of {size / 1e6:g} Mb, "
                   f"{n_reads} reads: {wall:.1f} s, launches "
@@ -710,7 +901,7 @@ def phase_mesh_identity(device, coverage, n_ins, seed, threads,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--size", type=int, default=3_000_000,
-                    help="simulated genome bases")
+                    help="simulated genome bases of the two pipeline phases")
     ap.add_argument("--coverage", type=int, default=30)
     ap.add_argument("--n-ins", type=int, default=10)
     ap.add_argument("--seed", type=int, default=3)
@@ -819,7 +1010,18 @@ def main(argv=None):
                 scores_ms=rb_bench["scores_ms"],
                 scores_plain_ms=rb_bench["scores_plain_ms"],
                 scores_bound_ms=rb_bench["scores_bound_ms"],
-                scores_bound_by=rb_bench["scores_bound_by"],
+                scores_bound_by=rb_bench["scores_bound_by"])
+        elif name == "rowband_walk":
+            # the bytes a launch sends to the host, against the direction
+            # bytes (and the time of their copy) the host walk needed
+            entry.update(
+                launches=mesh_launches[name],
+                max_abs_err=max(r["walk_err"] for r in rb_results),
+                ms=rb_bench["walk_ms"], plain_ms=rb_bench["walk_plain_ms"],
+                bound_ms=rb_bench["walk_bound_ms"],
+                bound_by=rb_bench["walk_bound_by"], library_ms=None,
+                bytes_to_host=rb_bench["walk_bytes_to_host"],
+                dirs_bytes=rb_bench["dirs_bytes"],
                 dirs_to_host_ms=rb_bench["dirs_to_host_ms"])
         else:
             key = "dp" if name == "wavefront_dp" else "walk"

@@ -299,7 +299,8 @@ def finalize_consensus(backbone: np.ndarray, best: np.ndarray,
 def vote_many(items: Sequence[Tuple[np.ndarray, list]],
               min_cov: int = 2, device=None) -> List[np.ndarray]:
     """Batched consensus over (backbone, alignments) loci on `device`
-    (None: the CUDA card when there is one, else the CPU).
+    (None: the first CUDA card, raising when there is none; "cpu" must be
+    asked for).
 
     Loci sharing a padded bucket shape are stacked into torch calls of at
     most _VOTE_ELEMS label cells; every call is enqueued before any result

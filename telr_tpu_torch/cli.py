@@ -61,13 +61,18 @@ def get_args(argv=None):
     p.add_argument("-k", "--keep_files", action="store_true",
                    help="keep per-stage intermediate checkpoints under "
                         "<out>/intermediate_files (reference telr.py:179-180)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the device work runs: the first CUDA card "
+                        "(the run fails when there is none), or the CPU, "
+                        "where the kernels' plain torch versions run")
     p.add_argument("--wavefront", choices=["auto", "on", "off"],
                    default="auto",
                    help="route DP through the CUDA wavefront kernels "
-                        "(auto: with a CUDA card, route the stages with "
+                        "(auto: on a CUDA card, route the stages with "
                         "large DP batches — alignment and assembly — and "
                         "keep latency-bound stages on the native host "
-                        "engine; on: every stage; off: none)")
+                        "engine, and with --device cpu route none; on: "
+                        "every stage; off: none)")
     p.add_argument("--wavefront_stages", default=None,
                    help="comma list of stages to route to the device "
                         "(overrides --wavefront; names: alignment, "
@@ -76,8 +81,8 @@ def get_args(argv=None):
     p.add_argument("--mesh_devices", type=int, default=0,
                    help="shard stage-1 DP, the locus all-to-all and depth "
                         "reductions over an N-device mesh driven by this "
-                        "process: N CUDA cards, or N CPU shards when there "
-                        "is no card (0 = off).  The row-banded DP reaches "
+                        "process: N CUDA cards, or N CPU shards under "
+                        "--device cpu (0 = off).  The row-banded DP reaches "
                         "the mesh in the stages that stay off the wavefront "
                         "route, so pair it with --wavefront off")
     p.add_argument("--checkpoint_dir", default=None,
@@ -106,23 +111,25 @@ def get_args(argv=None):
 AUTO_WAVEFRONT_STAGES = ("alignment", "assembly")
 
 
-def _resolve_wavefront(choice: str, stages: str = None):
-    """-> (use_wavefront, wavefront_stages)."""
+def _resolve_wavefront(choice: str, stages: str = None,
+                       device: str = "cuda"):
+    """-> (use_wavefront, wavefront_stages).  "auto" follows the run's
+    device: the large-batch stages on a card, none on the CPU."""
     if stages:
         return True, tuple(s.strip() for s in stages.split(",") if s.strip())
     if choice == "on":
         return True, None
     if choice == "off":
         return False, None
-    import torch
-    return ((True, AUTO_WAVEFRONT_STAGES) if torch.cuda.is_available()
+    return ((True, AUTO_WAVEFRONT_STAGES) if device == "cuda"
             else (False, None))
 
 
 def config_from_args(args) -> TELRConfig:
     use_wf, wf_stages = _resolve_wavefront(
         getattr(args, "wavefront", "auto"),
-        getattr(args, "wavefront_stages", None))
+        getattr(args, "wavefront_stages", None),
+        getattr(args, "device", "cuda"))
     return TELRConfig(
         presets=args.presets,
         sv=SVConfig(min_support=args.min_support),
@@ -151,6 +158,10 @@ def main(argv=None):
         raise NotImplementedError(
             "--profile_dir needs the torch.profiler trace, which is not "
             "ported yet (ROADMAP queue 1: --profile_dir via torch.profiler)")
+    from telr_tpu_torch.utils.device import resolve
+    # the card unless the CPU was asked for; no card and no --device cpu
+    # raises here, before any stage runs
+    device = resolve("cpu" if args.device == "cpu" else None)
     cfg = config_from_args(args)
     cfg.validate()
     out = os.path.abspath(args.out)
@@ -163,9 +174,9 @@ def main(argv=None):
     mesh = None
     if args.mesh_devices:
         from telr_tpu_torch.dist.mesh import make_mesh
-        mesh = make_mesh(args.mesh_devices)
+        mesh = make_mesh(args.mesh_devices, device=device)
     result = run_pipeline(args.reads, args.reference, args.library, out, cfg,
-                          checkpoint_dir=ckpt_dir, mesh=mesh)
+                          checkpoint_dir=ckpt_dir, device=device, mesh=mesh)
     print("TELR finished!")
     return result
 

@@ -1,12 +1,16 @@
 """Mesh execution of the mapper's DP batches.
 
-`sharded_dp_runner(mesh)` adapts the batched banded DP (dp.banded_dp_batch)
-to the mesh's "reads" axis: the (B, ...) piece batch is padded to a multiple
-of the mesh size, cut into one slice per shard, and each slice runs the
-row-banded DP kernel on its shard's device, so stage-1 alignment compute
-executes through the mesh on the same `run_pipeline` path.  Launches are
-asynchronous, so the shards' kernels overlap; the direction bytes come back
-to the host for the native traceback.
+`sharded_dp_runner(mesh)` adapts the batched banded DP to the mesh's "reads"
+axis: the (B, ...) piece batch is padded to a multiple of the mesh size, cut
+into one slice per shard, and each slice runs the row-banded DP kernel on
+its shard's device, so stage-1 alignment compute executes through the mesh
+on the same `run_pipeline` path.  Launches are asynchronous, so the shards'
+kernels overlap.  The runner speaks two conventions: called like
+dp.banded_dp_batch it returns the direction bytes and scores as numpy (the
+form the tests hold against the JAX package's runner); its `walks` method,
+which dp.align_pairs uses, also walks the direction bytes on each shard
+(dp.banded_dp_walk) and brings back only the packed alignments, through a
+pinned buffer on a CUDA shard.
 
 `make_depth_psum_step(mesh, cov_bins, max_blocks)` is the CIGAR-true depth
 reduction: each shard scatter-adds its reads' aligned M-block spans into a
@@ -27,17 +31,37 @@ from telr_tpu_torch.kernels import dp
 # keyed by the Mesh itself (hashable by devices+axes)
 _runner_cache: Dict[object, object] = {}
 
+# direction bytes a CPU shard may hold per launch (host memory; a CUDA shard
+# takes dp.WALK_DIRS_BUDGET of its card's)
+_CPU_DIRS_BUDGET = 1 << 28
 
-def sharded_dp_runner(mesh: Mesh):
-    """A drop-in for dp.banded_dp_batch (numpy in, numpy out) that shards
-    the batch dim over the mesh's "reads" axis."""
-    cached = _runner_cache.get(mesh)
-    if cached is not None:
-        return cached
-    n = mesh.size
-    devices = mesh.axis_devices(READS_AXIS)
 
-    def runner(q, t, off, qlen, tlen, *, width, mode, params_tuple):
+def _to_host(x):
+    """A device tensor as numpy; a CUDA tensor goes through a pinned buffer
+    (pageable copies run at a fraction of the link's rate)."""
+    import torch
+    if x.device.type != "cuda":
+        return x.numpy()
+    buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    buf.copy_(x)
+    return buf.numpy()
+
+
+class ShardedDPRunner:
+    """The mesh's DP runner (see the module docstring).  `bytes_to_host`
+    counts what its calls copied back from the devices."""
+
+    def __init__(self, mesh: Mesh):
+        self.n = mesh.size
+        self.devices = mesh.axis_devices(READS_AXIS)
+        per_shard = (dp.WALK_DIRS_BUDGET
+                     if self.devices[0].type == "cuda" else _CPU_DIRS_BUDGET)
+        self.dirs_budget = per_shard * len(self.devices)
+        self.bytes_to_host = 0
+
+    def _padded(self, q, t, off, qlen, tlen):
+        """The batch padded with fill rows to a multiple of the mesh size."""
+        n = self.n
         B = q.shape[0]
         Bp = max(B, n)
         if Bp % n:
@@ -52,20 +76,59 @@ def sharded_dp_runner(mesh: Mesh):
                                                 off.dtype)])
             qlen = np.concatenate([qlen, np.ones(pad, qlen.dtype)])
             tlen = np.concatenate([tlen, np.ones(pad, tlen.dtype)])
+        return Bp, (q, t, off, qlen, tlen)
+
+    def _fetch(self, tensors):
+        out = [_to_host(x) for x in tensors]
+        self.bytes_to_host += sum(a.nbytes for a in out)
+        return out
+
+    def __call__(self, q, t, off, qlen, tlen, *, width, mode, params_tuple):
+        """dp.banded_dp_batch's convention, numpy in and numpy out."""
+        B = q.shape[0]
+        Bp, arrays = self._padded(q, t, off, qlen, tlen)
         # launch every shard before reading any back: the copies to the
         # host wait for their own device only
-        outs = [dp.banded_dp_batch(q[s], t[s], off[s], qlen[s], tlen[s],
-                                   width=width, mode=mode,
-                                   params_tuple=params_tuple, device=dev)
-                for s, dev in shard_slices(Bp, devices)]
+        outs = [dp.banded_dp_batch(*(a[s] for a in arrays), width=width,
+                                   mode=mode, params_tuple=params_tuple,
+                                   device=dev)
+                for s, dev in shard_slices(Bp, self.devices)]
+        outs = [self._fetch(o) for o in outs]
         if len(outs) == 1:
-            return tuple(o.cpu().numpy()[:B] for o in outs[0])
-        return tuple(
-            np.concatenate([o[k].cpu().numpy() for o in outs])[:B]
-            for k in range(5))
+            return tuple(o[:B] for o in outs[0])
+        return tuple(np.concatenate([o[k] for o in outs])[:B]
+                     for k in range(5))
 
-    _runner_cache[mesh] = runner
-    return runner
+    def walks(self, q, t, off, qlen, tlen, *, width, mode, params_tuple,
+              walk: bool = True):
+        """Launch DP and walk on every shard; returns a function that waits
+        for them and gives (packed (B, S4) uint8, or None with walk=False;
+        small (8, B) int32) as numpy."""
+        B = q.shape[0]
+        Bp, arrays = self._padded(q, t, off, qlen, tlen)
+        outs = [dp.banded_dp_walk(*(a[s] for a in arrays), width=width,
+                                  mode=mode, params_tuple=params_tuple,
+                                  device=dev, walk=walk)
+                for s, dev in shard_slices(Bp, self.devices)]
+
+        def fetch():
+            small = np.concatenate(
+                [self._fetch([sm])[0] for _p, sm in outs], axis=1)[:, :B]
+            if not walk:
+                return None, small
+            packed = np.concatenate(
+                [self._fetch([p])[0] for p, _sm in outs])[:B]
+            return packed, small
+
+        return fetch
+
+
+def sharded_dp_runner(mesh: Mesh) -> ShardedDPRunner:
+    """The mesh's runner for dp.align_pairs(runner=), one per mesh."""
+    cached = _runner_cache.get(mesh)
+    if cached is None:
+        cached = _runner_cache[mesh] = ShardedDPRunner(mesh)
+    return cached
 
 
 def make_depth_psum_step(mesh: Mesh, cov_bins: int, max_blocks: int):

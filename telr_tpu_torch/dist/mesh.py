@@ -95,9 +95,10 @@ def make_mesh(n_devices: Optional[int] = None, loci_parallel: int = 1,
               device=None) -> Mesh:
     """Build a ("reads", "loci") mesh.
 
-    device: None picks the CUDA cards when there are any, else the CPU;
-    "cuda" takes cards 0..n-1 and raises when n exceeds their number; "cpu"
-    gives n shards that all live on the CPU (n defaults to 1 there)."""
+    device: None or "cuda" takes cards 0..n-1 and raises when n exceeds
+    their number (None also raises when there is no card at all); "cpu",
+    which must be asked for, gives n shards that all live on the CPU (n
+    defaults to 1 there)."""
     import torch
     from telr_tpu_torch.utils.device import resolve
     dev = resolve(device)

@@ -100,14 +100,49 @@ def load() -> ctypes.CDLL:
                 _build(path)
             lib = ctypes.CDLL(path)
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.telr_wavefront_dp.argtypes = [vp] * 3 + [ci] * 10 + [vp] * 6
+            lib.telr_wavefront_dp.argtypes = [vp] * 3 + [ci] * 11 + [vp] * 6
             lib.telr_wavefront_dp.restype = ci
             lib.telr_wavefront_walk.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 3
             lib.telr_wavefront_walk.restype = ci
-            lib.telr_rowband_dp.argtypes = [vp] * 5 + [ci] * 11 + [vp] * 6
+            lib.telr_rowband_dp.argtypes = [vp] * 5 + [ci] * 12 + [vp] * 6
             lib.telr_rowband_dp.restype = ci
+            lib.telr_rowband_walk.argtypes = [vp] * 8 + [ci] * 5 + [vp] * 3
+            lib.telr_rowband_walk.restype = ci
+            for fn in (lib.telr_wavefront_dp_cells,
+                       lib.telr_rowband_dp_cells):
+                fn.argtypes = [ci, ci]
+                fn.restype = ci
             _LIB = lib
     return _LIB
+
+
+# Warps a DP launch needs before long threads pay: about two for each of the
+# card's 132 x 4 warp schedulers (tools/port_kernel_ab.py --sweep: below it
+# the most threads a pair win, above it the fewest).
+FILL_WARPS = 1024
+
+
+def cell_options(kernel: str, width: int):
+    """The cells a thread that `kernel` ("wavefront_dp" or "rowband_dp") is
+    built for at this band width, as its source reports them: (fewest,
+    most), or () for a width it has no instance of."""
+    cells = getattr(load(), f"telr_{kernel}_cells")
+    return tuple(c for c in (cells(width, 0), cells(width, 1)) if c)
+
+
+def pick_cells(width: int, n: int, options) -> int:
+    """How many neighbouring band cells a thread of a DP kernel owns, for a
+    launch of n pairs at this band width.  A pair's steps are a dependent
+    chain, so a launch is bound either by that chain (few pairs: the card is
+    not full, and the step is shortest with the most threads a pair, one or
+    two cells each) or by the instructions issued (many pairs: long threads
+    do the least work per cell, the per-thread overhead of a step being
+    shared by more cells).  The choice: the most cells a thread that still
+    gives the card FILL_WARPS warps; below that, the fewest."""
+    for cells in sorted(options, reverse=True):
+        if n * width // (32 * cells) >= FILL_WARPS:
+            return cells
+    return min(options)
 
 
 def check(rc: int, what: str) -> None:

@@ -19,7 +19,9 @@ Host side of the row-banded DP (PyTorch port):
     card, plain torch ops on the CPU).  align_pairs takes them only as an
     explicit `runner` (the mesh path's dist/exec.sharded_dp_runner).
   * Direction bits (2b H-choice, 1b D-extend, 1b I-extend) are emitted per
-    cell; traceback is a cheap host-side walk.
+    cell.  On the native route the traceback is a host-side walk; on the
+    runner route banded_dp_walk also walks on the device, and only the
+    packed alignment comes back to the host.
 
 Modes:
   GLOBAL — end-to-end (0,0)->(Lq,Lt) within the band (anchor stitching).
@@ -139,7 +141,8 @@ def numpy_affine_dp(q: np.ndarray, t: np.ndarray, mode: int,
 
 def _to_device(device, q, t, off, qlen, tlen):
     """The batch arrays (numpy or torch) as contiguous tensors on `device`
-    (None: utils.device.resolve's choice) in the DP's dtypes."""
+    (None: the first CUDA card, see utils.device.resolve) in the DP's
+    dtypes."""
     import torch
     from telr_tpu_torch.utils.device import resolve
     dev = resolve(device)
@@ -172,6 +175,37 @@ def banded_dp_batch(q, t, off, qlen, tlen, *, width, mode, params_tuple,
     return rowband_dp(*_to_device(device, q, t, off, qlen, tlen),
                       width=width, mode=mode, params_tuple=params_tuple,
                       tb=True)
+
+
+def banded_dp_walk(q, t, off, qlen, tlen, *, width, mode, params_tuple,
+                   device=None, walk: bool = True):
+    """Banded DP and traceback walk over a batch, both on `device`: the
+    direction bytes never leave it.
+
+    Arguments as banded_dp_batch.  Returns (packed, small) as tensors on
+    `device`, hopper_dp.rowband_walk's outputs: packed (B, S_pad / 4) uint8
+    op codes and the (8, B) int32 stack [gscore, best, ei, ej, bad, si, sj,
+    margin].  walk=False skips the walk: packed is None and the stack holds
+    the scores and the start cell (si, sj) only (ei = ej = bad = 0,
+    margin = width)."""
+    import torch
+    from telr_tpu_torch.kernels import hopper_dp
+    q, t, off, qlen, tlen = _to_device(device, q, t, off, qlen, tlen)
+    dirs, gscore, best, besti, bestp = hopper_dp.rowband_dp(
+        q, t, off, qlen, tlen, width=width, mode=mode,
+        params_tuple=params_tuple, tb=True)
+    if walk:
+        return hopper_dp.rowband_walk(dirs, off, qlen, tlen, gscore, best,
+                                      besti, bestp, lt=t.shape[1], mode=mode)
+    if mode == GLOBAL:
+        si, sj = qlen, tlen
+    else:
+        si = besti
+        sj = torch.where(si > 0, off.gather(1, si.long()[:, None])[:, 0]
+                         + bestp, bestp)
+    zero = torch.zeros_like(gscore)
+    return None, torch.stack([gscore, best, zero, zero, zero, si, sj,
+                              torch.full_like(gscore, width)])
 
 
 # ---------------------------------------------------------------------------
@@ -407,9 +441,13 @@ def align_pair(q: np.ndarray, t: np.ndarray, mode: int, params: DPParams,
                         off_pad, lq, lt, mode, want_cigar)
 
 
-# cap on dirs bytes (B * Lq * W) per launch; bounds host memory
+# native route: cap on dirs bytes (B * Lq * W) per batch; bounds host memory
 _MAX_BATCH_CELLS = 1 << 26
 _MAX_BATCH = 256
+# walk-runner route: the direction bytes stay on the device, so a launch is
+# sized for the card: dirs bytes one launch may hold on each shard (two
+# launches are in flight at a time)
+WALK_DIRS_BUDGET = 1 << 32
 
 
 def _native_walks() -> bool:
@@ -445,41 +483,41 @@ def align_pairs(items, runner=None, want_cigar: bool = True,
     runner: optional override with banded_dp_batch's calling convention,
     numpy in and numpy out — the hook dist/exec.py uses to run the same
     batches on the mesh's devices (stage-1 data parallelism over the "reads"
-    axis).  Without one the batches go to the native engine.
+    axis).  A runner that has a `walks` method (dist/exec.py's has) also
+    walks on its devices: its batches are sized by its `dirs_budget`, not
+    by the host-memory caps, and pairs are finished from the packed walks
+    (_align_groups_walks).  Without a runner the batches go to the native
+    engine.
 
     Returns one align_pair-style result dict per item."""
+    from telr_tpu_torch.utils import hoststats
     results: List[Optional[dict]] = [None] * len(items)
     groups: dict = {}
-    for i, (q, t, mode, params, width, off) in enumerate(items):
-        kind, payload = _prep_pair(q, t, mode, params, width, off)
-        if kind == "quick":
-            if cigar_arrays and "cigar" in payload:
-                payload = dict(payload,
-                               cigar=cigar_to_arrays(payload["cigar"]))
-            results[i] = payload
-            continue
-        q_pad, t_pad, off_pad, lq, lt, w = payload
-        key = (mode, w, len(q_pad), len(t_pad), params.tuple())
-        groups.setdefault(key, []).append((i, q_pad, t_pad, off_pad, lq, lt))
+    with hoststats.timer("align_prep"):
+        for i, (q, t, mode, params, width, off) in enumerate(items):
+            kind, payload = _prep_pair(q, t, mode, params, width, off)
+            if kind == "quick":
+                if cigar_arrays and "cigar" in payload:
+                    payload = dict(payload,
+                                   cigar=cigar_to_arrays(payload["cigar"]))
+                results[i] = payload
+                continue
+            q_pad, t_pad, off_pad, lq, lt, w = payload
+            key = (mode, w, len(q_pad), len(t_pad), params.tuple())
+            groups.setdefault(key, []).append((i, q_pad, t_pad, off_pad, lq,
+                                               lt))
     if not groups:
+        return results
+    if getattr(runner, "walks", None) is not None:
+        _align_groups_walks(groups, results, runner, want_cigar,
+                            cigar_arrays)
         return results
     run = runner if runner is not None else _native_dp()
     for (mode, w, lq_b, lt_b, ptuple), jobs in groups.items():
         chunk = min(_MAX_BATCH, max(1, _MAX_BATCH_CELLS // (lq_b * w)))
         for c0 in range(0, len(jobs), chunk):
             part = jobs[c0:c0 + chunk]
-            B = len(part)
-            qb = np.full((B, lq_b), 4, dtype=np.int8)
-            tb = np.full((B, lt_b), 4, dtype=np.int8)
-            ob = np.zeros((B, lq_b + 1), dtype=np.int32)
-            ql = np.ones(B, dtype=np.int32)
-            tl = np.ones(B, dtype=np.int32)
-            for r, (_i, q_pad, t_pad, off_pad, lq, lt) in enumerate(part):
-                qb[r] = q_pad
-                tb[r] = t_pad
-                ob[r] = off_pad
-                ql[r] = lq
-                tl[r] = lt
+            qb, tb, ob, ql, tl = _pack_batch(part, lq_b, lt_b)
             dirs, gscore, best, besti, bestp = run(
                 qb, tb, ob, ql, tl, width=w, mode=mode,
                 params_tuple=ptuple)
@@ -493,6 +531,95 @@ def align_pairs(items, runner=None, want_cigar: bool = True,
                     dirs[r], gscore[r], best[r], besti[r], bestp[r],
                     off_pad, lq, lt, mode, want_cigar, cigar_arrays)
     return results
+
+
+def _pack_batch(part, lq_b: int, lt_b: int):
+    """The padded (q, t, off, qlen, tlen) arrays of one exact-size batch of
+    align_pairs jobs."""
+    B = len(part)
+    qb = np.full((B, lq_b), 4, dtype=np.int8)
+    tb = np.full((B, lt_b), 4, dtype=np.int8)
+    ob = np.zeros((B, lq_b + 1), dtype=np.int32)
+    ql = np.ones(B, dtype=np.int32)
+    tl = np.ones(B, dtype=np.int32)
+    for r, (_i, q_pad, t_pad, off_pad, lq, lt) in enumerate(part):
+        qb[r] = q_pad
+        tb[r] = t_pad
+        ob[r] = off_pad
+        ql[r] = lq
+        tl[r] = lt
+    return qb, tb, ob, ql, tl
+
+
+def _align_groups_walks(groups, results, runner, want_cigar: bool,
+                        cigar_arrays: bool) -> None:
+    """align_pairs' batches through a runner that walks on its devices.
+
+    runner.walks(q, t, off, qlen, tlen, width=, mode=, params_tuple=,
+    walk=) launches the DP and the walk and returns a function that waits
+    for them and gives (packed (B, S4) uint8 or None, small (8, B) int32)
+    as numpy.  A group is cut by runner.dirs_budget (device memory);
+    results are per pair, so the cut cannot change a bit.  The next batch
+    is launched before the last one is collected, so its packing and the
+    decode overlap the device's work.  Fills `results` with exactly what
+    _finish_pair gives on the native route; a walk the host walker would
+    refuse raises the host walker's error."""
+    import time
+    from telr_tpu_torch.io import native
+    from telr_tpu_torch.kernels.hopper_dp import (
+        WALK_BAD, WALK_BEST, WALK_EI, WALK_EJ, WALK_GSCORE, WALK_MARGIN,
+        WALK_SI, WALK_SJ)
+    from telr_tpu_torch.utils import hoststats
+    if want_cigar and not native.has_wave_decode():
+        raise RuntimeError("the native host engine (native/libtelr_native"
+                           ".so) is required to decode device tracebacks")
+
+    def collect(item):
+        part, mode, fetch = item
+        with hoststats.timer("rowband_device_wait"):
+            packed, small = fetch()
+        t0 = time.perf_counter()
+        si, sj = small[WALK_SI], small[WALK_SJ]
+        bad = small[WALK_BAD]
+        if bad.any():
+            r = int(np.flatnonzero(bad)[0])
+            raise RuntimeError(
+                f"traceback left the band from ({int(si[r])},{int(sj[r])})")
+        score = small[WALK_GSCORE if mode == GLOBAL else WALK_BEST]
+        if want_cigar:
+            offsets, ops, lens = native.wave_decode_batch(
+                packed.T, small[WALK_EI], small[WALK_EJ], bad, False)
+        for r, (i, *_rest) in enumerate(part):
+            out = {"qstart": 0, "tstart": 0, "score": int(score[r]),
+                   "qend": int(si[r]), "tend": int(sj[r])}
+            if want_cigar:
+                arr = (ops[offsets[r]:offsets[r + 1]],
+                       lens[offsets[r]:offsets[r + 1]])
+                if cigar_arrays:
+                    out["cigar"] = arr
+                    out["band_margin"] = int(small[WALK_MARGIN, r])
+                else:
+                    out["cigar"] = arrays_to_cigar(arr)
+                out["qstart"] = int(small[WALK_EI, r])
+                out["tstart"] = int(small[WALK_EJ, r])
+            results[i] = out
+        hoststats.add("rowband_decode", time.perf_counter() - t0)
+
+    pending = None
+    for (mode, w, lq_b, lt_b, ptuple), jobs in groups.items():
+        chunk = max(1, runner.dirs_budget // (lq_b * w))
+        for c0 in range(0, len(jobs), chunk):
+            part = jobs[c0:c0 + chunk]
+            with hoststats.timer("rowband_pack"):
+                batch = _pack_batch(part, lq_b, lt_b)
+            with hoststats.timer("rowband_launch"):
+                fetch = runner.walks(*batch, width=w, mode=mode,
+                                     params_tuple=ptuple, walk=want_cigar)
+            if pending is not None:
+                collect(pending)
+            pending = (part, mode, fetch)
+    if pending is not None:
+        collect(pending)
 
 
 def cigar_stats(cigar) -> Tuple[int, int, int, int]:

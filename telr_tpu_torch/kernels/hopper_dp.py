@@ -11,20 +11,26 @@ banded recurrence of kernels/dp.py's module docstring over a batch of padded
     device ahead of the host traceback.
 
 Both are one CUDA kernel (csrc/rowband_dp.cu, a template with two
-instances).  The wrapper runs the plain PyTorch version below when handed
-CPU tensors (the CPU tests hold it against the JAX package) and launches
-the kernel, or raises, for CUDA tensors; it counts its CUDA launches in
-`rowband_dp.launches`.  The kernel is built at first launch
-(kernels/cuda_lib.py), never at import.
+instances).  `rowband_walk` (csrc/rowband_walk.cu) then walks the direction
+bytes back from each pair's start cell on the device, as the host walk
+(dp.traceback, native telr_traceback) does, and returns 2-bit op codes and a
+small scalar stack: what crosses to the host is the alignment, not the
+B x Lq x W direction bytes.
+
+Each wrapper runs its plain PyTorch version below when handed CPU tensors
+(the CPU tests hold them against the JAX package) and launches its kernel,
+or raises, for CUDA tensors; each counts its CUDA launches in a `launches`
+attribute.  The kernels are built at first launch (kernels/cuda_lib.py),
+never at import.
 """
 
 from __future__ import annotations
 
 from telr_tpu_torch.kernels.dp import GLOBAL, LOCAL, NEG_INF
 
-# band widths the CUDA kernel is instantiated for (csrc/rowband_dp.cu)
-CUDA_WIDTHS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
-
+# rows of rowband_walk's scalar stack
+WALK_GSCORE, WALK_BEST, WALK_EI, WALK_EJ, WALK_BAD, WALK_SI, WALK_SJ, \
+    WALK_MARGIN = range(8)
 
 def _check_batch(q, t, off, qlen, tlen, width: int):
     """Raise on what the kernel does not take.  The offsets contract is that
@@ -65,14 +71,16 @@ def _check_batch(q, t, off, qlen, tlen, width: int):
 
 
 def rowband_dp(q, t, off, qlen, tlen, *, width: int, mode: int,
-               params_tuple, tb: bool = True):
+               params_tuple, tb: bool = True, cells=None):
     """Row-banded affine-gap DP over a batch of pairs.
 
     q (B, Lq) int8 codes (4 past qlen), t (B, Lt) int8, off (B, Lq+1) int32
     band offsets, qlen / tlen (B,) int32: tensors on one device.  Returns
     (dirs (B, Lq, W) uint8, gscore, best, besti, bestp) with tb=True and
     (gscore, best) with tb=False, the (B,) results int32.  On CUDA, dirs rows
-    past a pair's qlen are left unwritten: no traceback reads them."""
+    past a pair's qlen are left unwritten: no traceback reads them.  cells:
+    the band cells a CUDA thread owns (None: cuda_lib.pick_cells' choice for
+    B pairs); it moves the time, never a bit of the result."""
     import torch
     _check_batch(q, t, off, qlen, tlen, width)
     if q.device.type == "cpu":
@@ -80,12 +88,18 @@ def rowband_dp(q, t, off, qlen, tlen, *, width: int, mode: int,
                                  params_tuple, tb)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if width not in CUDA_WIDTHS:
-        raise ValueError(f"the CUDA row-banded DP has no width {width}")
     from telr_tpu_torch.kernels import cuda_lib
+    options = cuda_lib.cell_options("rowband_dp", width)
+    if not options:
+        raise ValueError(f"the CUDA row-banded DP has no width {width}")
+    B, Lq = q.shape
+    if cells is None:
+        cells = cuda_lib.pick_cells(width, B, options)
+    elif cells not in options:
+        raise ValueError(f"the CUDA row-banded DP has no {cells} cells a "
+                         f"thread at width {width}")
     lib = cuda_lib.load()
     dev = q.device
-    B, Lq = q.shape
     gscore = torch.empty(B, dtype=torch.int32, device=dev)
     best = torch.empty(B, dtype=torch.int32, device=dev)
     if tb:
@@ -100,17 +114,20 @@ def rowband_dp(q, t, off, qlen, tlen, *, width: int, mode: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.telr_rowband_dp(
             q.data_ptr(), t.data_ptr(), off.data_ptr(), qlen.data_ptr(),
-            tlen.data_ptr(), B, Lq, t.shape[1], width, mode, int(tb),
+            tlen.data_ptr(), B, Lq, t.shape[1], width, cells, mode, int(tb),
             ma, mi, go, ge, amb, gscore.data_ptr(), best.data_ptr(), *ptrs,
             stream)
     cuda_lib.check(rc, "rowband_dp")
     rowband_dp.launches += 1
+    key = (width, Lq, t.shape[1], mode, bool(tb), B)
+    rowband_dp.shapes[key] = rowband_dp.shapes.get(key, 0) + 1
     if tb:
         return dirs, gscore, best, besti, bestp
     return gscore, best
 
 
 rowband_dp.launches = 0
+rowband_dp.shapes = {}   # CUDA launches by (width, Lq, Lt, mode, tb, pairs)
 
 
 def _rowband_dp_plain(q, t, off, qlen, tlen, width, mode, params_tuple, tb):
@@ -242,3 +259,143 @@ def _rowband_dp_plain(q, t, off, qlen, tlen, width, mode, params_tuple, tb):
     if tb:
         return dirs, gscore, best, besti, bestp
     return gscore, best
+
+
+# ----------------------------------------------------------------------
+# The traceback walk over the row-banded direction bytes
+
+def walk_steps(lq: int, lt: int) -> int:
+    """S_pad of a (lq, lt) padded batch: the slots of `packed`, one per
+    step s = i + j of the matrix, rounded up to whole bytes."""
+    return (lq + lt + 3) // 4 * 4
+
+
+def rowband_walk(dirs, off, qlen, tlen, gscore, best, besti, bestp, *,
+                 lt: int, mode: int):
+    """Walk each pair's direction bytes back from its start cell.
+
+    dirs (B, Lq, W) uint8 and the (B,) int32 DP outputs come from
+    rowband_dp(tb=True) on the batch with offsets off (B, Lq+1) int32 and
+    lengths qlen / tlen (B,) int32, padded target length lt.  The start cell
+    is (qlen, tlen) for GLOBAL, else (besti, off[besti] + bestp), on row 0
+    when besti == 0.  Returns `packed`, (B, S_pad / 4) uint8 with S_pad =
+    walk_steps(Lq, lt): the op (0=M, 1=D, 2=I, 3=none) leaving the cell at
+    step s = i + j in slot S_pad - s, four slots a byte, every op of the
+    path included (native.wave_decode_batch(packed.T, ..., lead=False)
+    decodes it); and `small`, the (8, B) int32 stack [gscore, best, ei, ej,
+    bad, si, sj, margin]: (ei, ej) the cell where the alignment begins,
+    margin the walk's least distance from a constraining band edge (W when
+    none), bad where the host walk would fail (the walk left the band, a
+    STOP byte outside LOCAL, a start cell outside the padded matrix)."""
+    import torch
+    if dirs.dtype != torch.uint8 or dirs.dim() != 3 \
+            or not dirs.is_contiguous():
+        raise TypeError("dirs must be a contiguous (B, Lq, W) uint8 tensor")
+    B, Lq, W = dirs.shape
+    if off.dtype != torch.int32 or tuple(off.shape) != (B, Lq + 1) \
+            or not off.is_contiguous() or off.device != dirs.device:
+        raise ValueError("off must be contiguous (B, Lq+1) int32 on dirs' "
+                         "device")
+    for x in (qlen, tlen, gscore, best, besti, bestp):
+        if x.dtype != torch.int32 or tuple(x.shape) != (B,) \
+                or x.device != dirs.device or not x.is_contiguous():
+            raise ValueError("lengths and DP outputs must be (B,) int32 on "
+                             "dirs' device")
+    if lt < 1:
+        raise ValueError(f"bad padded target length {lt}")
+    S_pad = walk_steps(Lq, lt)
+    if dirs.device.type == "cpu":
+        return _rowband_walk_plain(dirs, off, qlen, tlen, gscore, best,
+                                   besti, bestp, S_pad, mode)
+    if dirs.device.type != "cuda":
+        raise ValueError(f"unsupported device {dirs.device}")
+    from telr_tpu_torch.kernels import cuda_lib
+    lib = cuda_lib.load()
+    dev = dirs.device
+    packed = torch.full((B, S_pad // 4), 0xFF, dtype=torch.uint8, device=dev)
+    small = torch.empty((8, B), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.telr_rowband_walk(
+            dirs.data_ptr(), off.data_ptr(), qlen.data_ptr(),
+            tlen.data_ptr(), gscore.data_ptr(), best.data_ptr(),
+            besti.data_ptr(), bestp.data_ptr(), B, Lq, W, S_pad, mode,
+            packed.data_ptr(), small.data_ptr(), stream)
+    cuda_lib.check(rc, "rowband_walk")
+    rowband_walk.launches += 1
+    return packed, small
+
+
+rowband_walk.launches = 0
+
+
+def _rowband_walk_plain(dirs, off, qlen, tlen, gscore, best, besti, bestp,
+                        S_pad, mode):
+    """rowband_walk in plain torch ops: all pairs take one step of the host
+    walk per iteration (a state switch and the op that follows it count as
+    one), until the longest walk has ended."""
+    import torch
+    B, Lq, W = dirs.shape
+    dev = dirs.device
+    i64 = torch.int64
+    off64 = off.to(i64)
+    tl = tlen.to(i64)
+    if mode == GLOBAL:
+        si, sj = qlen.to(i64), tl.clone()
+    else:
+        si = besti.to(i64)
+        o = off64.gather(1, si.clamp(0, Lq)[:, None])[:, 0]
+        sj = torch.where(si > 0, o + bestp, bestp.to(i64))
+    bad = (si < 0) | (si > Lq) | (sj < 0) | (si + sj > S_pad)
+    i, j = si.clone(), sj.clone()
+    st = torch.zeros(B, dtype=i64, device=dev)            # 0=H, 1=D, 2=I
+    done = bad.clone()
+    margin = torch.full((B,), W, dtype=i64, device=dev)
+    # one slot per step and a spare column that takes the writes of the
+    # pairs with nothing to emit
+    ops = torch.full((B, S_pad + 1), 3, dtype=torch.uint8, device=dev)
+    flat = dirs.reshape(B, Lq * W)
+    n_iter = int((si + sj)[~bad].max()) if bool((~bad).any()) else 0
+    for _ in range(n_iter):
+        act = ~done & ((i > 0) | (j > 0))
+        row0 = act & (i == 0)
+        cell = act & (i > 0)
+        oi = off64.gather(1, i.clamp(0, Lq)[:, None])[:, 0]
+        p = j - oi
+        esc = cell & ((p < 0) | (p >= W))       # the walk left the band
+        cell = cell & ~esc
+        margin = torch.where(cell & (oi > 0) & (p < margin), p, margin)
+        right = W - 1 - p
+        margin = torch.where(cell & (oi + W <= tl) & (right < margin),
+                             right, margin)
+        idx = (i - 1).clamp(0, Lq - 1) * W + p.clamp(0, W - 1)
+        byte = flat.gather(1, idx[:, None])[:, 0].to(i64)
+        ch = byte & 3
+        in_h = cell & (st == 0)
+        if mode == LOCAL:
+            brk = in_h & (ch == 3)
+            in_h = in_h & ~brk
+        else:
+            brk = torch.zeros_like(in_h)
+        to_i = in_h & ((j == 0) | (ch == 2))
+        to_m = in_h & ~to_i & (ch == 0)
+        to_d = in_h & ~to_i & (ch == 1)
+        err = in_h & ~to_i & (ch == 3)          # STOP outside LOCAL
+        do_d = to_d | (cell & (st == 1))
+        do_i = to_i | (cell & (st == 2))
+        emit = to_m | do_d | do_i | row0
+        op = torch.where(to_m, 0, torch.where(do_i, 2, 1))
+        slot = torch.where(emit, S_pad - (i + j), S_pad)
+        ops.scatter_(1, slot[:, None], op.to(torch.uint8)[:, None])
+        st = torch.where(to_m, 0, torch.where(
+            do_d, (byte & 4) // 4, torch.where(do_i, (byte & 8) // 4, st)))
+        i = i - (to_m | do_i).to(i64)
+        j = j - (to_m | do_d | row0).to(i64)
+        bad = bad | esc | err
+        done = done | esc | err | brk
+    o4 = ops[:, :S_pad].reshape(B, S_pad // 4, 4)
+    packed = o4[:, :, 0] | (o4[:, :, 1] << 2) | (o4[:, :, 2] << 4) \
+        | (o4[:, :, 3] << 6)
+    small = torch.stack([gscore.to(i64), best.to(i64), i, j, bad.to(i64),
+                         si, sj, margin]).to(torch.int32)
+    return packed.contiguous(), small

@@ -16,7 +16,8 @@ The counterpart of telr_tpu/kernels/pallas_wavefront.py.  One round of
 Each kernel wrapper runs its plain PyTorch version when handed CPU tensors
 (the CPU tests hold both against the JAX package) and launches the CUDA
 kernel, or raises, for CUDA tensors.  Each counts its CUDA launches in a
-`launches` attribute.  The kernels are built at first launch
+`launches` attribute (wavefront_dp also by shape, in `shapes`).  The kernels
+are built at first launch
 (kernels/cuda_lib.py), never at import.
 """
 
@@ -164,7 +165,8 @@ def _check_wire(meta, init, scal, n: int, width: int):
 
 
 def wavefront_dp(meta, init, scal, n: int, width: int, mode: int,
-                 params: DPParams, tb: bool = True):
+                 params: DPParams, tb: bool = True,
+                 lanes: Optional[int] = None):
     """Banded anti-diagonal Gotoh DP of the first n pairs of a wire batch.
 
     meta (G, 8, S_pad) int8, init (G, 16, W) int8 and scal (G, 8, 8) int32
@@ -172,7 +174,9 @@ def wavefront_dp(meta, init, scal, n: int, width: int, mode: int,
     Returns (gscore, best, best_s, best_p, dirs) — four (n,) int32 tensors
     and the (n, S_pad, W) int8 direction bytes, row s-1 holding step s —
     or (gscore, best) with tb=False.  Rows past a pair's lq + lt steps are
-    left unwritten on CUDA: no walk reads them."""
+    left unwritten on CUDA: no walk reads them.  lanes: the band lanes a
+    CUDA thread owns (None: cuda_lib.pick_cells' choice for n pairs); it
+    moves the time, never a bit of the result."""
     import torch
     _check_wire(meta, init, scal, n, width)
     if meta.device.type == "cpu":
@@ -181,8 +185,14 @@ def wavefront_dp(meta, init, scal, n: int, width: int, mode: int,
     if meta.device.type != "cuda":
         raise ValueError(f"unsupported device {meta.device}")
     from telr_tpu_torch.kernels import cuda_lib
-    if width not in (128, 256, 512, 1024, 2048):
+    options = cuda_lib.cell_options("wavefront_dp", width)
+    if not options:
         raise ValueError(f"the CUDA wavefront DP has no width {width}")
+    if lanes is None:
+        lanes = cuda_lib.pick_cells(width, n, options)
+    elif lanes not in options:
+        raise ValueError(f"the CUDA wavefront DP has no {lanes} lanes a "
+                         f"thread at width {width}")
     lib = cuda_lib.load()
     S_pad = meta.shape[2]
     dev = meta.device
@@ -200,16 +210,20 @@ def wavefront_dp(meta, init, scal, n: int, width: int, mode: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.telr_wavefront_dp(
             meta.data_ptr(), init.data_ptr(), scal.data_ptr(), n, S_pad,
-            width, mode, int(tb), ma, mi, go, ge, amb, gscore.data_ptr(),
+            width, lanes, mode, int(tb), ma, mi, go, ge, amb,
+            gscore.data_ptr(),
             best.data_ptr(), *ptrs, stream)
     cuda_lib.check(rc, "wavefront_dp")
     wavefront_dp.launches += 1
+    key = (width, mode, S_pad, n)
+    wavefront_dp.shapes[key] = wavefront_dp.shapes.get(key, 0) + 1
     if tb:
         return gscore, best, best_s, best_p, dirs
     return gscore, best
 
 
 wavefront_dp.launches = 0
+wavefront_dp.shapes = {}   # CUDA launches by (width, mode, S_pad, pairs)
 
 
 def _wavefront_dp_plain(meta, init, scal, n, width, mode, params_tuple, tb):
@@ -464,8 +478,8 @@ def wavefront_align(
     tstart, tend (or a "failed" entry when the walk left the band).
     cigar_arrays=True returns "cigar" in the (ops uint8, lens int32) array
     form that dp.cigar_to_arrays accepts verbatim.  device: where the DP and
-    the walk run (None: the CUDA card when there is one, else the CPU,
-    where the kernels' plain versions run)."""
+    the walk run (None: the first CUDA card, raising when there is none;
+    "cpu" runs the kernels' plain versions)."""
     import torch
     from telr_tpu_torch.io import native as _native
     from telr_tpu_torch.kernels.dp import arrays_to_cigar

@@ -467,6 +467,9 @@ def _extend_chunked(ext_items, run_round):
     with array cigars.  run_round: callback mapping a list of
     (q, t, params) chunk jobs to align_pair-style results (CPU batch or
     wavefront kernel launch)."""
+    import time
+    from telr_tpu_torch.utils import hoststats
+    t_start, t_rounds = time.perf_counter(), 0.0
     n = len(ext_items)
     state = [{"qoff": 0, "toff": 0, "score": 0,
               "cigar": (np.zeros(0, np.uint8), np.zeros(0, np.int32)),
@@ -486,7 +489,9 @@ def _extend_chunked(ext_items, run_round):
             slots.append(i)
         if not jobs:
             break
+        t0 = time.perf_counter()
         results = run_round(jobs)
+        t_rounds += time.perf_counter() - t0
         nxt = []
         for i, res in zip(slots, results):
             s = state[i]
@@ -505,6 +510,8 @@ def _extend_chunked(ext_items, run_round):
                     continue
             s["done"] = True
         pending = nxt
+    # the scheduler's own host time: slicing the chunks, merging the cigars
+    hoststats.add("ext_schedule", time.perf_counter() - t_start - t_rounds)
     return [{"score": s["score"], "cigar": s["cigar"], "qend": s["qoff"],
              "tend": s["toff"], "qstart": 0, "tstart": 0}
             for s in state]
@@ -547,6 +554,9 @@ def _dispatch_pieces(groups, jobs, piece_results, job_ids=None):
     wave_ext_slots: list = []
     wave_ext_device = None
     runner = None
+    import time
+    from telr_tpu_torch.utils import hoststats
+    t_collect = time.perf_counter()
     for ji in (range(len(jobs)) if job_ids is None else job_ids):
         (gi, *_x, pieces) = jobs[ji]
         al = groups[gi][0]
@@ -589,6 +599,7 @@ def _dispatch_pieces(groups, jobs, piece_results, job_ids=None):
                 else:
                     cpu_items.append((q, t, mode, params, width, None))
                     cpu_slots.append((ji, tag))
+    hoststats.add("map_collect", time.perf_counter() - t_collect)
     if _wave_goes_to_host(wave_buckets, wave_ext_items):
         for (ptuple, mode, _wave_w, _dev), items in wave_buckets.items():
             params = dp.DPParams(*ptuple)

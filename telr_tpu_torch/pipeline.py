@@ -168,7 +168,8 @@ def run_pipeline(
     mesh=None,
 ) -> PipelineResult:
     """device: where the wavefront DP kernels and the assembly vote run
-    (None: the CUDA card when there is one, else the CPU).
+    (None: the first CUDA card, and a RuntimeError when there is none;
+    "cpu" runs the kernels' plain versions on the CPU).
 
     mesh: optional dist.mesh.Mesh with a "reads" axis.  When given,
     stage-1 DP batches execute sharded over the mesh, candidate loci are

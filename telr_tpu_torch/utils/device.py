@@ -4,9 +4,15 @@ from __future__ import annotations
 
 
 def resolve(device=None):
-    """`device` as a torch.device; None picks the first CUDA card when there
-    is one, else the CPU (where the kernels' plain versions run)."""
+    """`device` as a torch.device.  None means the first CUDA card and raises
+    when there is none: the CPU (where the kernels' plain versions run) is
+    taken only when the caller names it, device="cpu" or `--device cpu`."""
     import torch
     if device is not None:
         return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card found (torch.cuda.is_available() is false); to run "
+            "on the CPU ask for it: device=\"cpu\", or --device cpu on the "
+            "command line")
+    return torch.device("cuda")

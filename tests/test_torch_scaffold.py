@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -113,7 +114,7 @@ def test_unported_flags_raise(flag, tmp_path):
 
 def test_cli_builds_the_mesh(monkeypatch, tmp_path):
     """--mesh_devices N hands run_pipeline an N-shard mesh on the run's
-    device (CPU shards here, where there is no card)."""
+    device (CPU shards under --device cpu)."""
     import torch
 
     from telr_tpu_torch import cli
@@ -127,21 +128,183 @@ def test_cli_builds_the_mesh(monkeypatch, tmp_path):
     f = tmp_path / "x.fa"
     f.write_text(">a\nACGT\n")
     base = ["-i", str(f), "-r", str(f), "-l", str(f), "-o",
-            str(tmp_path / "out")]
+            str(tmp_path / "out"), "--device", "cpu"]
     cli.main(base)
-    assert seen["mesh"] is None
+    assert seen["mesh"] is None and seen["device"].type == "cpu"
     cli.main(base + ["--mesh_devices", "4", "--wavefront", "off"])
     assert seen["mesh"].shape == {"reads": 4, "loci": 1}
     assert all(d.type == "cpu" for d in seen["mesh"].flat_devices())
 
 
 def test_auto_routing_follows_cuda(monkeypatch):
+    """auto follows the device the run was given, not what the machine
+    has."""
     import torch
 
     from telr_tpu_torch import cli
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    assert cli._resolve_wavefront("auto") == (True,
-                                              cli.AUTO_WAVEFRONT_STAGES)
+    for have in (True, False):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: have)
+        assert cli._resolve_wavefront("auto") == (True,
+                                                  cli.AUTO_WAVEFRONT_STAGES)
+        assert cli._resolve_wavefront("auto", device="cuda") == (
+            True, cli.AUTO_WAVEFRONT_STAGES)
+        assert cli._resolve_wavefront("auto", device="cpu") == (False, None)
+    assert cli._resolve_wavefront("on", device="cpu") == (True, None)
+    assert cli._resolve_wavefront("off", device="cuda") == (False, None)
+
+
+def test_resolve_raises_without_a_card(monkeypatch):
+    import torch
+
+    from telr_tpu_torch.utils.device import resolve
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert cli._resolve_wavefront("auto") == (False, None)
-    assert cli._resolve_wavefront("on") == (True, None)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        resolve(None)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        resolve()
+    assert resolve("cpu").type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve(None).type == "cuda"
+
+
+@pytest.mark.parametrize("entry", ["run_pipeline", "make_mesh",
+                                   "wavefront_align", "vote_many",
+                                   "banded_dp_batch", "banded_dp_scores"])
+def test_entry_points_do_not_fall_back_to_the_cpu(entry, monkeypatch,
+                                                  tmp_path):
+    """Without a card and without device="cpu" every entry point raises."""
+    import numpy as np
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    f = tmp_path / "x.fa"
+    f.write_text(">a\nACGT\n")
+    q = np.zeros((1, 64), np.int8)
+    dp_args = (q, q, np.zeros((1, 65), np.int32), np.ones(1, np.int32),
+               np.ones(1, np.int32))
+    dp_kw = dict(width=64, mode=0, params_tuple=(2, 4, 4, 2, -1))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        if entry == "run_pipeline":
+            from telr_tpu_torch.pipeline import run_pipeline
+            run_pipeline(str(f), str(f), str(f), str(tmp_path / "out"))
+        elif entry == "make_mesh":
+            from telr_tpu_torch.dist.mesh import make_mesh
+            make_mesh(2)
+        elif entry == "wavefront_align":
+            from telr_tpu_torch.kernels.dp import DPParams
+            from telr_tpu_torch.kernels.hopper_wavefront import \
+                wavefront_align
+            wavefront_align([(q[0], q[0])], 128, 0, DPParams())
+        elif entry == "vote_many":
+            from telr_tpu_torch.assembly.device_vote import vote_many
+            vote_many([(q[0], [])])
+        else:
+            from telr_tpu_torch.kernels import dp
+            getattr(dp, entry)(*dp_args, **dp_kw)
+    assert not (tmp_path / "out").exists()
+
+
+def test_cli_raises_without_a_card_before_any_stage(monkeypatch, tmp_path):
+    import torch
+
+    from telr_tpu_torch import cli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ran = []
+    monkeypatch.setattr(cli, "run_pipeline",
+                        lambda *a, **kw: ran.append(kw))
+    f = tmp_path / "x.fa"
+    f.write_text(">a\nACGT\n")
+    base = ["-i", str(f), "-r", str(f), "-l", str(f), "-o",
+            str(tmp_path / "out")]
+    for extra in ([], ["--device", "cuda"], ["--mesh_devices", "2"]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            cli.main(base + extra)
+    assert not ran and not (tmp_path / "out").exists()
+
+
+def test_device_cpu_auto_routes_to_the_host_engine(monkeypatch, tmp_path):
+    """--device cpu --wavefront auto: no stage goes to the wavefront
+    kernels, whatever the machine has."""
+    import torch
+
+    from telr_tpu_torch import cli
+    seen = {}
+
+    def fake_run(reads, ref, lib, out, cfg, **kw):
+        seen.update(kw, cfg=cfg)
+
+    monkeypatch.setattr(cli, "run_pipeline", fake_run)
+    f = tmp_path / "x.fa"
+    f.write_text(">a\nACGT\n")
+    base = ["-i", str(f), "-r", str(f), "-l", str(f), "-o",
+            str(tmp_path / "out"), "--device", "cpu"]
+    for have in (False, True):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: have)
+        cli.main(base + ["--wavefront", "auto"])
+        assert seen["device"].type == "cpu"
+        assert seen["cfg"].use_wavefront is False
+        assert seen["cfg"].wavefront_stages is None
+    cli.main(base + ["--wavefront", "on"])
+    assert seen["cfg"].use_wavefront is True and seen["device"].type == "cpu"
+
+
+def test_pick_cells_follows_the_number_of_pairs():
+    """Few pairs take the most threads a pair (fewest cells a thread), many
+    pairs the fewest; the choice never leaves the options and never shrinks
+    as the pairs grow."""
+    from telr_tpu_torch.kernels import cuda_lib
+    assert cuda_lib.pick_cells(128, 64, (1, 2, 4)) == 1
+    assert cuda_lib.pick_cells(128, 8192, (1, 2, 4)) == 4
+    assert cuda_lib.pick_cells(2048, 64, (2, 4, 8)) == 4
+    assert cuda_lib.pick_cells(512, 1, (4, 8, 16)) == 4
+    assert cuda_lib.pick_cells(512, 1 << 20, (4, 8, 16)) == 16
+    for width, options in ((128, (1, 2, 4)), (512, (4, 8, 16)),
+                           (2048, (8, 16))):
+        picks = [cuda_lib.pick_cells(width, n, options)
+                 for n in (1, 10, 100, 1000, 10000, 100000)]
+        assert set(picks) <= set(options) and picks == sorted(picks)
+        # the card is full at the choice, or no option fills it
+        for n, c in zip((1, 10, 100, 1000, 10000, 100000), picks):
+            assert n * width // (32 * c) >= cuda_lib.FILL_WARPS \
+                or c == min(options)
+
+
+def test_align_pairs_times_its_host_preparation():
+    """align_pairs counts the padding and grouping of its items under
+    `align_prep`, once a call, so that a stage's breakdown shows it."""
+    from telr_tpu_torch.kernels import dp
+    from telr_tpu_torch.utils import hoststats
+    rng = np.random.default_rng(11)
+    t = rng.integers(0, 4, 90).astype(np.int8)
+    items = [(t[:80].copy(), t, dp.EXTEND, dp.DPParams(), None, None),
+             (t[:0], t, dp.EXTEND, dp.DPParams(), None, None)]
+    hoststats.reset()
+    res = dp.align_pairs(items)
+    snap = hoststats.snapshot()
+    assert snap["align_prep"]["n"] == 1 and snap["align_prep"]["s"] >= 0
+    assert res[0]["qend"] == 80 and res[1]["score"] == 0
+
+
+def test_extend_chunked_times_its_scheduler_apart_from_its_rounds():
+    """The chunked extension counts its own host time (slicing the chunks,
+    merging the cigars) under `ext_schedule`, without the rounds it runs."""
+    import time
+    from telr_tpu_torch.kernels import dp, mapper
+    from telr_tpu_torch.utils import hoststats
+    rng = np.random.default_rng(12)
+    t = rng.integers(0, 4, 1500).astype(np.int8)
+    ext_items = [(t[:1300].copy(), t, dp.DPParams())]
+    rounds = []
+
+    def run_round(jobs):
+        rounds.append(len(jobs))
+        time.sleep(0.05)
+        return mapper._run_ext_round_cpu(jobs)
+
+    hoststats.reset()
+    t0 = time.perf_counter()
+    res = mapper._extend_chunked(ext_items, run_round)
+    total = time.perf_counter() - t0
+    spent = hoststats._c()[0]["ext_schedule"]
+    assert len(rounds) == 3 and res[0]["qend"] == 1300
+    assert 0 <= spent <= total - 0.05 * len(rounds)
