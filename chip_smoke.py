@@ -22,20 +22,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                against its plain version and against the native host walk
                (ops, start and end cell, band margin, bad flag).  Kernel and
                plain times, and what a launch sends to the host: the packed
-               walks, against the direction bytes the host walk needed;
-  4. dist      the score steps, the sharded runner (its direction bytes, and
+               walks, against the direction bytes the host walk needed.
+               Each walk case prints its longest walk and the nanoseconds a
+               step of it took;
+  4. walk-tiles  both walks on cases made to cross the walk kernels' tile
+               edges (walk_tile_cases), in all three modes: D and I runs of
+               150-450 steps, a walk along a constraining band edge, walks
+               that leave the band, a LOCAL STOP in mid-tile, starts on row 0
+               and at (0, 0); each against its plain version on every output
+               byte, the row-banded walk also against the native host walk;
+  5. dist      the score steps, the sharded runner (its direction bytes, and
                align_pairs through its device walks against the native
                engine's align_pairs, both cigar forms), the depth reduction
                and the locus all-to-all on a one-card mesh, against the plain
                version, AlignmentStore.coverage and the owner rule;
-  5. pipeline  the CLI (--device cuda, default auto routing) on a simulated
+  6. pipeline  the CLI (--device cuda, default auto routing) on a simulated
                genome (--size: by default 3 Mb at 30x with 10 planted
                insertions, seed 3, from tools/genome_eval.py's generators):
                stage seconds, launches by shape, peak device memory,
                precision / recall / F1 against the planted truth.
                Fails if a wavefront kernel was not launched, the vote did not
                run on the card, an output file is missing or F1 < 0.8;
-  6. pipeline-mesh  the CLI with --mesh_devices 1 --wavefront off on the
+  7. pipeline-mesh  the CLI with --mesh_devices 1 --wavefront off on the
                same genome: the same checks, plus the locus_redistribute
                stage, row-banded DP and walk launches (by shape), the bytes
                stage 1 copied back from the card and the depth reduction on
@@ -73,7 +81,7 @@ KERNELS = {
     "wavefront_dp": ("telr_tpu_torch/csrc/wavefront_dp.cu",
                      "telr_tpu/kernels/pallas_wavefront.py:75"),
     "wavefront_walk": ("telr_tpu_torch/csrc/wavefront_walk.cu",
-                       "telr_tpu/kernels/pallas_wavefront.py:939"),
+                       "telr_tpu/kernels/pallas_wavefront.py:941"),
     "rowband_dp": ("telr_tpu_torch/csrc/rowband_dp.cu",
                    "telr_tpu/kernels/pallas_dp.py:53"),
     "rowband_walk": ("telr_tpu_torch/csrc/rowband_walk.cu",
@@ -95,8 +103,8 @@ WAVEFRONT_OPS = {False: 34, True: 50}
 WALK_OPS_PER_STEP = 20
 
 
-PHASES = ("parity", "rowband-parity", "dist", "pipeline", "pipeline-mesh",
-          "mesh-identity")
+PHASES = ("parity", "rowband-parity", "walk-tiles", "dist", "pipeline",
+          "pipeline-mesh", "mesh-identity")
 
 
 def bounds(n_bytes, n_ops):
@@ -264,32 +272,15 @@ def check_case(name, width, mode, pairs, guides, device, reps=3):
     sc_ms, _ = _timed(lambda: hw.wavefront_dp(
         meta, init, scal, n, width, mode, params, tb=False), reps, device)
 
-    walk_in = (k_out[4], meta, scal) + tuple(k_out[:4]) + (mode,)
-    walk_ms, (packed, small) = _timed(
-        lambda: hw.wavefront_walk(*walk_in), reps, device)
-    torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    ppacked, psmall = hw._wavefront_walk_plain(*walk_in)
-    torch.cuda.synchronize(device)
-    walk_plain_ms = (time.perf_counter() - t0) * 1e3
-    if not (torch.equal(packed, ppacked) and torch.equal(small, psmall)):
-        raise AssertionError(f"{name} mode {mode}: wavefront_walk differs "
-                             "from the plain version")
-    n_bad = int(small[4].sum())
-    if n_bad:
-        raise AssertionError(f"{name} mode {mode}: {n_bad} walks left the "
-                             "band")
-    walk_err = _max_err([(packed, ppacked), (small, psmall)])
+    walk = check_wavefront_walk(name, mode, k_out[4], meta, scal,
+                                k_out[:4], device, reps)
     steps = int((lq + lt).sum())
     cells = steps * width
     wire = sum(x.numel() * x.element_size() for x in (meta, init, scal))
     # the DP reads the wire arrays and writes a byte per cell of its own
-    # steps; the walk reads a direction byte and a meta byte per step
+    # steps
     dp_bound = bounds(wire + cells + 16 * n, WAVEFRONT_OPS[True] * cells)
     sc_bound = bounds(wire + 8 * n, WAVEFRONT_OPS[False] * cells)
-    walk_bound = bounds(2 * steps + packed.numel() * packed.element_size()
-                        + small.numel() * small.element_size(),
-                        WALK_OPS_PER_STEP * steps)
     return {"case": name, "width": width, "mode": mode, "pairs": n,
             "S_pad": S_pad, "cells": cells,
             "lanes": cuda_lib.pick_cells(
@@ -297,11 +288,50 @@ def check_case(name, width, mode, pairs, guides, device, reps=3):
             "dp_bound_ms": dp_bound[0], "dp_bound_by": dp_bound[1],
             "dp_scores_bound_ms": sc_bound[0],
             "dp_scores_bound_by": sc_bound[1],
-            "walk_bound_ms": walk_bound[0], "walk_bound_by": walk_bound[1],
             "dp_ms": dp_ms, "dp_plain_ms": dp_plain_ms, "dp_err": dp_err,
-            "dp_scores_ms": sc_ms,
-            "walk_ms": walk_ms, "walk_plain_ms": walk_plain_ms,
-            "walk_err": walk_err}
+            "dp_scores_ms": sc_ms, **walk}
+
+
+def check_wavefront_walk(name, mode, dirs, meta, scal, dp_out, device, reps,
+                         allow_bad=False):
+    """wavefront_walk on one batch's direction bytes against its plain
+    version, every output byte; raises on any difference, and on a walk
+    that left the band unless allow_bad.  Returns timings, errors, the
+    steps walked and the bound."""
+    import torch
+    from telr_tpu_torch.kernels import hopper_wavefront as hw
+    walk_in = (dirs, meta, scal) + tuple(dp_out) + (mode,)
+    ms, (packed, small) = _timed(lambda: hw.wavefront_walk(*walk_in), reps,
+                                 device)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    ppacked, psmall = hw._wavefront_walk_plain(*walk_in)
+    torch.cuda.synchronize(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(packed, ppacked) and torch.equal(small, psmall)):
+        raise AssertionError(f"{name} mode {mode}: wavefront_walk differs "
+                             "from the plain version")
+    n_bad = int(small[4].sum())
+    if n_bad and not allow_bad:
+        raise AssertionError(f"{name} mode {mode}: {n_bad} walks left the "
+                             "band")
+    walked = _walked(packed.cpu().numpy(), 1)
+    steps = int(walked.sum())
+    longest = int(walked.max()) if walked.size else 0
+    # a direction byte per step walked, the meta bytes of the steps up to
+    # each start (the band base there is their sum), the DP outputs and wire
+    # scalars read, the packed ops and the scalar stack written
+    starts = int((small[5].long() + small[6].long()).sum())
+    n = small.shape[1]
+    out_bytes = packed.numel() + small.numel() * 4
+    bound = bounds(steps + starts + 32 * n + out_bytes,
+                   WALK_OPS_PER_STEP * steps + starts)
+    return {"walk_ms": ms, "walk_plain_ms": plain_ms,
+            "walk_bound_ms": bound[0], "walk_bound_by": bound[1],
+            "walk_steps": steps, "walk_longest": longest,
+            "walk_ns_per_step": ms * 1e6 / longest if longest else None,
+            "walk_bad": n_bad,
+            "walk_err": _max_err([(packed, ppacked), (small, psmall)])}
 
 
 def phase_parity(device):
@@ -316,32 +346,36 @@ def phase_parity(device):
     return results
 
 
+def rowband_batch(pairs, width, offs=None):
+    """Pad (q, t) pairs to one row-banded batch as dp._prep_pair pads them
+    (codes 4 past the lengths, the last offset repeated): (q, t, off, qlen,
+    tlen)."""
+    from telr_tpu_torch.kernels import dp
+    lq_b = dp._bucket(max(len(q) for q, _ in pairs))
+    lt_b = dp._bucket(max(len(t) for _, t in pairs))
+    B = len(pairs)
+    q = np.full((B, lq_b), 4, np.int8)
+    t = np.full((B, lt_b), 4, np.int8)
+    off = np.zeros((B, lq_b + 1), np.int32)
+    qlen = np.zeros(B, np.int32)
+    tlen = np.zeros(B, np.int32)
+    for b, (qq, tt) in enumerate(pairs):
+        o = (dp.make_band_offsets(len(qq), len(tt), width)
+             if offs is None else offs[b])
+        q[b, :len(qq)] = qq
+        t[b, :len(tt)] = tt
+        off[b] = o[-1]
+        off[b, :len(o)] = o
+        qlen[b], tlen[b] = len(qq), len(tt)
+    return q, t, off, qlen, tlen
+
+
 def rowband_cases(seed=2):
     """(name, width, (q, t, off, qlen, tlen)) padded batches at the shapes
     the mesh path hands the row-banded DP, built as dp._prep_pair pads them
     (codes 4 past the lengths, the last offset repeated)."""
     from telr_tpu_torch.kernels import dp
     rng = np.random.default_rng(seed)
-
-    def batch(pairs, width, offs=None):
-        lq_b = dp._bucket(max(len(q) for q, _ in pairs))
-        lt_b = dp._bucket(max(len(t) for _, t in pairs))
-        B = len(pairs)
-        q = np.full((B, lq_b), 4, np.int8)
-        t = np.full((B, lt_b), 4, np.int8)
-        off = np.zeros((B, lq_b + 1), np.int32)
-        qlen = np.zeros(B, np.int32)
-        tlen = np.zeros(B, np.int32)
-        for b, (qq, tt) in enumerate(pairs):
-            o = (dp.make_band_offsets(len(qq), len(tt), width)
-                 if offs is None else offs[b])
-            q[b, :len(qq)] = qq
-            t[b, :len(tt)] = tt
-            off[b] = o[-1]
-            off[b, :len(o)] = o
-            qlen[b], tlen[b] = len(qq), len(tt)
-        return q, t, off, qlen, tlen
-
     cases = []
     # bench.py's row-banded batch: 64 unrelated pairs, 2048 x 3072, W = 512
     B, LQ, LT, W = 64, 2048, 3072, 512
@@ -357,14 +391,14 @@ def rowband_cases(seed=2):
     for _ in range(256):
         q, t = _related(rng, 560, 704, 50, indel=int(rng.integers(0, 30)))
         pairs.append((q[:512], t))
-    cases.append(("ext_round512", 512, batch(pairs, 512)))
+    cases.append(("ext_round512", 512, rowband_batch(pairs, 512)))
     # stage-1 region DPs: read-sized related pairs in the 4096 bucket
     pairs = []
     for _ in range(64):
         lq = int(rng.integers(1500, 3500))
         pairs.append(_related(rng, lq, lq, lq // 10,
                               indel=int(rng.integers(0, 40))))
-    cases.append(("region128", 128, batch(pairs, 128)))
+    cases.append(("region128", 128, rowband_batch(pairs, 128)))
     # a wide band following an anchor path across a long indel
     pairs, offs = [], []
     for _ in range(16):
@@ -375,8 +409,173 @@ def rowband_cases(seed=2):
         anchors = np.arange(256, min(len(q), len(t)) // 4, 256)
         offs.append(dp.offsets_from_path(len(q), len(t), 2048, anchors,
                                          anchors))
-    cases.append(("wide2048", 2048, batch(pairs, 2048, offs)))
+    cases.append(("wide2048", 2048, rowband_batch(pairs, 2048, offs)))
     return cases
+
+
+def _gapped(rng, core, gap, flank):
+    """A (query, target) pair around a shared core of `core` bases with 2%
+    substitutions: a gap of |gap| bases in its middle (gap > 0: deleted from
+    the query, a run of D; gap < 0: inserted into it, a run of I), and
+    `flank` unrelated bases on either side of both sequences, so a LOCAL
+    walk stops where the core begins, in the middle of the matrix."""
+    t = rng.integers(0, 4, core).astype("int8")
+    q = t.copy()
+    idx = rng.integers(0, core, core // 50)
+    q[idx] = rng.integers(0, 4, len(idx))
+    k = (core - max(gap, 0)) // 2
+    if gap > 0:
+        q = np.delete(q, np.arange(k, k + gap))
+    elif gap < 0:
+        q = np.insert(q, k, rng.integers(0, 4, -gap)).astype("int8")
+
+    def fl():
+        return rng.integers(0, 4, flank).astype("int8")
+    return np.concatenate([fl(), q, fl()]), np.concatenate([fl(), t, fl()])
+
+
+def walk_tile_cases(seed=7, core=1200, flank=100):
+    """Walks that cross the walk kernels' tile edges, for both walks:
+    (name, width, pairs, edit).  `gaps`: a D run and an I run of 150-450
+    steps in a band wide enough for them (W = 1024 row-banded, 512
+    wavefront), every run several tiles long; `edge`: the same gaps in a band
+    too narrow for them (W = 128), so the walk runs along a constraining band
+    edge (margin 0); `escape_d` / `escape_i`: every walk leaves the band;
+    `row0`: starts on row 0 and at (0, 0).  The flanks put a LOCAL walk's
+    STOP in the middle of a tile.  The edits (edit_rowband_walk,
+    edit_wavefront_walk) are made to the DP outputs before the walk."""
+    rng = np.random.default_rng(seed)
+    pairs = [_gapped(rng, core, g, flank)
+             for g in (150, -150, 300, -300, 450, -450, 200, -200)]
+    return [("gaps", None, pairs, "none"), ("edge", 128, pairs, "none"),
+            ("escape_d", None, pairs, "all_d"),
+            ("escape_i", None, pairs, "all_i"),
+            ("row0", None, pairs, "row0")]
+
+
+def edit_rowband_walk(edit, mode, dp_out, qlen, tlen):
+    """Apply a walk_tile_cases edit to the row-banded DP's outputs [dirs,
+    gscore, best, besti, bestp] (torch tensors on any device): `all_d` /
+    `all_i` make every direction byte an extended D (the walk runs left
+    along its row) or an extended I (up its column); `row0` starts pair k's
+    walk at the cell (0, k % 9), for GLOBAL through the lengths (0, k % 9).
+    A walk from row 0 is the run of D along it, which the kernel writes
+    without a tile.  dp_out is edited in place; returns (qlen, tlen)."""
+    import torch
+    from telr_tpu_torch.kernels.dp import GLOBAL
+    if edit == "all_d":
+        dp_out[0].fill_(1 | 4)
+    elif edit == "all_i":
+        dp_out[0].fill_(2 | 8)
+    elif edit == "row0":
+        k9 = torch.arange(len(qlen), device=qlen.device,
+                          dtype=torch.int32) % 9
+        if mode == GLOBAL:
+            qlen, tlen = torch.zeros_like(qlen), k9
+        else:
+            dp_out[3], dp_out[4] = torch.zeros_like(k9), k9
+    return qlen, tlen
+
+
+def edit_wavefront_walk(edit, mode, dirs, meta, scal, best_s, best_p):
+    """The same edits to the wavefront DP's outputs: `all_d` / `all_i` to
+    its direction bytes; `row0` starts pair k's walk at (0, k % 9), for
+    GLOBAL through the wire lengths (lq, lt) = (0, k % 9), else through
+    best_s = k % 9 and the band position that puts that step's cell on row
+    0 (best_s = 0: the empty alignment, which starts at (0, 0)).  The kernel
+    walks only while i > 0 and j > 0 (the decode adds the run along row 0),
+    so a row0 case tests the start cell's arithmetic and no tile.  dirs is
+    edited in place; returns (scal, best_s, best_p)."""
+    import torch
+    from telr_tpu_torch.kernels.dp import GLOBAL
+    if edit == "all_d":
+        dirs.fill_(1 | 4)
+    elif edit == "all_i":
+        dirs.fill_(2 | 8)
+    elif edit == "row0":
+        n = dirs.shape[0]
+        scal = scal.clone()
+        sc = scal.view(-1, 8)[:n]
+        k9 = torch.arange(n, device=dirs.device, dtype=torch.int32) % 9
+        if mode == GLOBAL:
+            sc[:, 0] = 0
+            sc[:, 1] = k9
+        else:
+            # the band base m_s of each step: m0 plus the drifts up to s
+            drift = (meta.view(-1, meta.shape[2])[:n].to(torch.int32)
+                     & 1) * 2 - 1
+            m = (sc[:, 3] - sc[:, 2])[:, None] + torch.cumsum(
+                drift, dim=1, dtype=torch.int32)
+            best_s = k9
+            ms = m.gather(1, (best_s - 1).clamp(min=0).long()[:, None])[:, 0]
+            # si = (s - m_s - 2 p) >> 1 = 0
+            best_p = torch.div(best_s - ms, 2, rounding_mode="floor")
+    return scal, best_s, best_p
+
+
+def _walked(packed, pair_axis):
+    """Steps each pair's walk took: the op codes other than 3 (none) in its
+    packed slots."""
+    codes = np.stack([(packed >> (2 * k)) & 3 for k in range(4)])
+    return (codes != 3).sum(axis=(0, 1 + (1 - pair_axis)))
+
+
+def phase_walk_tiles(device, reps=3):
+    """Both walk kernels on walk_tile_cases in all three modes, each against
+    its plain version on every output byte, the row-banded walk also against
+    the native host walk.  Returns one result per walk, case and mode."""
+    import torch
+    from telr_tpu_torch.kernels import hopper_dp
+    from telr_tpu_torch.kernels import hopper_wavefront as hw
+    from telr_tpu_torch.kernels.dp import DPParams, EXTEND, GLOBAL, LOCAL
+    params = DPParams()
+    results = []
+    for name, width, pairs, edit in walk_tile_cases():
+        for mode in (GLOBAL, EXTEND, LOCAL):
+            # the row-banded walk: its DP kernel on the band of each pair
+            W = width or 1024
+            arrays = rowband_batch(pairs, W)
+            dts = (torch.int8, torch.int8, torch.int32, torch.int32,
+                   torch.int32)
+            q, t, off, qlen, tlen = (
+                torch.from_numpy(a).to(device=device, dtype=dt)
+                for a, dt in zip(arrays, dts))
+            dp_out = list(hopper_dp.rowband_dp(
+                q, t, off, qlen, tlen, width=W, mode=mode,
+                params_tuple=params.tuple(), tb=True))
+            qlen, tlen = edit_rowband_walk(edit, mode, dp_out, qlen, tlen)
+            dirs_host = dp_out[0].cpu().numpy()
+            r = check_rowband_walk(f"{name} W={W}", mode, dp_out, off, qlen,
+                                   tlen, t.shape[1], dirs_host, device, reps)
+            results.append({"kernel": "rowband_walk", "case": name,
+                            "width": W, "mode": mode, "pairs": len(pairs),
+                            **r})
+            del dp_out, dirs_host
+            # the wavefront walk: its DP kernel on the same pairs
+            W = width or 512
+            meta, init, scal = (torch.from_numpy(x).to(device) for x in
+                                hw.prepare_wavefront_batch(pairs, W))
+            n = len(pairs)
+            g, b, bs, bp, dirs = hw.wavefront_dp(meta, init, scal, n, W,
+                                                 mode, params, tb=True)
+            scal, bs, bp = edit_wavefront_walk(edit, mode, dirs, meta, scal,
+                                               bs, bp)
+            r = check_wavefront_walk(f"{name} W={W}", mode, dirs, meta, scal,
+                                     (g, b, bs, bp), device, reps,
+                                     allow_bad=edit != "none")
+            results.append({"kernel": "wavefront_walk", "case": name,
+                            "width": W, "mode": mode, "pairs": n, **r})
+            del dirs
+    for kernel in ("rowband_walk", "wavefront_walk"):
+        # the walks these cases are for
+        if not any(r["walk_longest"] >= 300 for r in results
+                   if r["kernel"] == kernel and r["case"] == "gaps"):
+            raise AssertionError(f"{kernel}: no long gapped walk")
+        if not any(r["walk_bad"] for r in results
+                   if r["kernel"] == kernel and r["case"].startswith(
+                       "escape")):
+            raise AssertionError(f"{kernel}: no walk left the band")
+    return results
 
 
 def check_rowband(name, width, mode, arrays, device, reps=3):
@@ -517,14 +716,18 @@ def check_rowband_walk(name, mode, dp_out, off, qlen, tlen, lt, dirs_host,
         if not same:
             raise AssertionError(f"{name} mode {mode} pair {r}: rowband_walk "
                                  "differs from the native host walk")
-    # one direction byte and one offset read per op walked, the packed ops
-    # and the scalar stack written
-    steps = int(lens.sum())
+    # one direction byte and one offset read per op walked (the walks that
+    # left the band included), the packed ops and the scalar stack written
+    walked = _walked(pk, 0)
+    steps = int(walked.sum())
+    longest = int(walked.max()) if walked.size else 0
     out_bytes = packed.numel() + small.numel() * 4
     bound = bounds(5 * steps + out_bytes, WALK_OPS_PER_STEP * steps)
     return {"walk_ms": ms, "walk_plain_ms": plain_ms,
             "walk_bound_ms": bound[0], "walk_bound_by": bound[1],
-            "walk_steps": steps, "walk_bad": n_bad,
+            "walk_steps": steps, "walk_longest": longest,
+            "walk_ns_per_step": ms * 1e6 / longest if longest else None,
+            "walk_bad": n_bad,
             "walk_err": _max_err([(packed, ppacked), (small, psmall)]),
             "walk_bytes_to_host": out_bytes}
 
@@ -898,6 +1101,19 @@ def phase_mesh_identity(device, coverage, n_ins, seed, threads,
           flush=True)
 
 
+def walk_lines(kernel, results):
+    """One line per walk case: the longest walk and the time a step of it
+    took (the launch's time over that walk's steps)."""
+    for r in results:
+        print(f"walk: {kernel} {r['case']} W={r['width']} mode {r['mode']}: "
+              f"{r['pairs']} pairs, longest walk {r['walk_longest']} steps, "
+              f"{r['walk_ms']:.4f} ms, " + (
+                  f"{r['walk_ns_per_step']:.1f} ns a step"
+                  if r["walk_ns_per_step"] is not None else
+                  "no step walked") +
+              f", plain {r['walk_plain_ms']:.1f} ms", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--size", type=int, default=3_000_000,
@@ -957,12 +1173,22 @@ def main(argv=None):
         results = phase_parity(device)
         for r in results:
             print("parity: " + json.dumps(r) + f" [{smi}]", flush=True)
+        walk_lines("wavefront_walk", results)
         done("parity")
     if "rowband-parity" in phases:
         rb_results = phase_rowband_parity(device)
         for r in rb_results:
             print("parity: " + json.dumps(r) + f" [{smi}]", flush=True)
+        walk_lines("rowband_walk", rb_results)
         done("rowband-parity")
+    if "walk-tiles" in phases:
+        tile_results = phase_walk_tiles(device)
+        for r in tile_results:
+            print("walk-tiles: " + json.dumps(r) + f" [{smi}]", flush=True)
+        for kernel in ("rowband_walk", "wavefront_walk"):
+            walk_lines(kernel, [r for r in tile_results
+                                if r["kernel"] == kernel])
+        done("walk-tiles")
     if "dist" in phases:
         score_launches = phase_dist(device)
         done("dist")
@@ -997,6 +1223,8 @@ def main(argv=None):
     for name, (source, replaces) in KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces}
+        # the walk-tiles cases of this kernel (none for the DP kernels)
+        tiles = [r for r in tile_results if r["kernel"] == name]
         if name == "rowband_dp":
             # launches: the traceback instance on the mesh pipeline's path,
             # the scores-only instance on the dist score steps'
@@ -1016,7 +1244,7 @@ def main(argv=None):
             # bytes (and the time of their copy) the host walk needed
             entry.update(
                 launches=mesh_launches[name],
-                max_abs_err=max(r["walk_err"] for r in rb_results),
+                max_abs_err=max(r["walk_err"] for r in rb_results + tiles),
                 ms=rb_bench["walk_ms"], plain_ms=rb_bench["walk_plain_ms"],
                 bound_ms=rb_bench["walk_bound_ms"],
                 bound_by=rb_bench["walk_bound_by"], library_ms=None,
@@ -1027,7 +1255,7 @@ def main(argv=None):
             key = "dp" if name == "wavefront_dp" else "walk"
             entry.update(
                 launches=launches[name],
-                max_abs_err=max(r[key + "_err"] for r in results),
+                max_abs_err=max(r[key + "_err"] for r in results + tiles),
                 ms=bench[key + "_ms"], plain_ms=bench[key + "_plain_ms"],
                 bound_ms=bench[key + "_bound_ms"],
                 bound_by=bench[key + "_bound_by"], library_ms=None)
