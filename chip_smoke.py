@@ -43,13 +43,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                precision / recall / F1 against the planted truth.
                Fails if a wavefront kernel was not launched, the vote did not
                run on the card, an output file is missing or F1 < 0.8;
-  7. pipeline-mesh  the CLI with --mesh_devices 1 --wavefront off on the
-               same genome: the same checks, plus the locus_redistribute
+  7. pipeline-mesh  the CLI with --mesh_devices 1 --wavefront off on a
+               genome of the same make cut to MESH_SIZE (1 Mb, so that the
+               whole script stays well inside its time limit): the same
+               checks, plus the locus_redistribute
                stage, row-banded DP and walk launches (by shape), the bytes
                stage 1 copied back from the card and the depth reduction on
                the card; then at 300 kb the mesh run's output files byte for
                byte against a --wavefront off run without a mesh (the
-               native host engine).
+               native host engine);
+  8. multiprocess  run_pipeline_multiprocess through
+               telr_tpu_torch/tools/two_process_pipeline.py on the same
+               genome (auto routing, --device cuda): one process, then two
+               that share the card with collectives over gloo.  Fails unless
+               the runs' seven files are byte-identical, every rank launched
+               both wavefront kernels and ran the vote on the card, and
+               F1 >= 0.8; prints stage seconds, walls, T1 / (2 T2), and each
+               rank's launches and peak device memory;
+  9. profile   the CLI with --profile_dir at 300 kb and
+               telr_tpu_torch/tools/profile_report.py on its trace: per-stage
+               device seconds and top kernels, the trace's size.  Fails
+               unless alignment and assembly each show time in both
+               wavefront kernels and no stage has more device time than wall.
 
 Every kernel's launch count is set to 0 just before the phase that drives its
 path and read just after.  The last lines are a JSON summary of the kernels
@@ -59,7 +74,6 @@ path and read just after.  The last lines are a JSON summary of the kernels
 """
 
 import argparse
-import importlib.util
 import json
 import logging
 import os
@@ -104,7 +118,14 @@ WALK_OPS_PER_STEP = 20
 
 
 PHASES = ("parity", "rowband-parity", "walk-tiles", "dist", "pipeline",
-          "pipeline-mesh", "mesh-identity")
+          "pipeline-mesh", "mesh-identity", "multiprocess", "profile")
+# the pipeline-mesh phase's genome: on an NVIDIA H100 80GB HBM3 host the
+# mesh path at 3 Mb took 112-123 s of 802-938 s of phases; at 1 Mb the
+# script keeps its margin to its time limit on a slower host
+MESH_SIZE = 1_000_000
+# the files run_pipeline_multiprocess writes
+MP_FILES = tuple("reads.telr." + x for x in OUTPUTS) + (
+    "reads.loci_eval.tsv",)
 
 
 def bounds(n_bytes, n_ops):
@@ -888,36 +909,11 @@ def phase_dist(device):
     return score_launches
 
 
-def _genome_eval():
-    path = os.path.join(ROOT, "tools", "genome_eval.py")
-    spec = importlib.util.spec_from_file_location("genome_eval", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def simulate(workdir, size, coverage, n_ins, seed):
-    """tools/genome_eval.py's dataset (one chromosome, chr2L), written with
-    the port's FASTA writer.  Returns the three paths and the truth."""
-    from telr_tpu_torch.io.fasta import write_fasta
-    from telr_tpu_torch.io.seqs import Sequence, SeqDict
-    ge = _genome_eval()
-    rng = np.random.default_rng(seed)
-    library = ge.make_te_library(rng)
-    genome = ge.make_genome(size, library, rng)
-    truth = ge.plant_insertions(genome, library, n_ins, rng)
-    for t in truth:
-        t["chrom"] = "chr2L"
-    reads = ge.simulate_reads(genome, truth, coverage, rng)
-    paths = [os.path.join(workdir, f) for f in ("reads.fa", "ref.fa",
-                                                 "lib.fa")]
-    write_fasta(SeqDict([Sequence(f"r{k}", c)
-                         for k, (_n, c) in enumerate(reads)]), paths[0])
-    write_fasta(SeqDict([Sequence("chr2L", genome)]), paths[1])
-    write_fasta(SeqDict([Sequence(n, c) for n, c in library.items()]),
-                paths[2])
-    n_bases = sum(len(c) for _n, c in reads)
-    return paths, truth, len(reads), n_bases, ge.score_calls
+    """tools/genome_eval.py's dataset, as telr_tpu_torch's multi-process
+    tool writes it (its `simulate`)."""
+    from telr_tpu_torch.tools.two_process_pipeline import simulate as sim
+    return sim(workdir, size, coverage, n_ins, seed)
 
 
 def run_cli(device, inputs, out, threads, coverage, extra=()):
@@ -1101,6 +1097,112 @@ def phase_mesh_identity(device, coverage, n_ins, seed, threads,
           flush=True)
 
 
+def phase_multiprocess(size, coverage, n_ins, seed, threads, procs=2):
+    """run_pipeline_multiprocess through telr_tpu_torch's multi-process tool
+    on the pipeline phases' genome: one process, then `procs` processes that
+    share the card (rank r takes card r % cards), `threads` host threads
+    each, collectives over gloo.  Each rank is a fresh process, so its launch
+    counts start at 0 with its run.  Fails unless the two runs' files are
+    byte-identical, every rank launched both wavefront kernels and ran the
+    vote on the card, and F1 >= 0.8.  Returns each rank's launches."""
+    from telr_tpu_torch.tools import two_process_pipeline as tpp
+    with tempfile.TemporaryDirectory(prefix="telr_smoke_") as work:
+        inputs, truth, n_reads, n_bases, score_calls = simulate(
+            work, size, coverage, n_ins, seed)
+        res = tpp.run(inputs, work, procs=procs, threads=threads,
+                      device="cuda", timeout_s=900)
+        with open(os.path.join(res["one_process"]["out_dir"],
+                               "reads.telr.json")) as f:
+            score = score_calls(json.load(f), truth)
+    runs = (("1 process", res["one_process"]),
+            (f"{procs} processes", res["multi_process"]))
+    for label, run in runs:
+        for r in run["ranks"]:
+            print(f"multiprocess: {label}, rank {r['rank']} on {r['device']} "
+                  f"({r['device_name']}): wall {r['wall_s']:.1f} s, stage "
+                  "seconds " + json.dumps({k: round(v, 2) for k, v in
+                                           r["stage_seconds"].items()}))
+            print(f"multiprocess: {label}, rank {r['rank']}: launches "
+                  f"{json.dumps(r['launches'])}, vote calls "
+                  f"{json.dumps(r['vote_calls'])}, peak device memory "
+                  f"{r['peak_device_bytes'] / 2**30:.2f} GiB", flush=True)
+    t1, t2 = res["one_process"]["wall_s"], res["multi_process"]["wall_s"]
+    print(f"multiprocess: {n_reads} reads ({n_bases / 1e6:.1f} Mb), "
+          f"{threads} threads a process: wall 1 process {t1:.1f} s, "
+          f"{procs} processes {t2:.1f} s, T1 / ({procs} T2) "
+          f"{res['scaling_efficiency']:.3f}; {len(res['output_files'])} "
+          f"files, byte-identical: {res['bit_identical']}", flush=True)
+    print(f"multiprocess: calls (both runs): precision {score['precision']} "
+          f"recall {score['recall']} F1 {score['f1']} (tp {score['tp']} fp "
+          f"{score['fp']} fn {score['fn']})", flush=True)
+    if res["mismatches"]:
+        raise AssertionError(f"1 and {procs} processes differ: "
+                             f"{res['mismatches']}")
+    missing = set(MP_FILES) - set(res["output_files"])
+    if missing:
+        raise AssertionError(f"missing outputs: {sorted(missing)}")
+    for label, run in runs:
+        for r in run["ranks"]:
+            for k in ("wavefront_dp", "wavefront_walk"):
+                if r["launches"][k] == 0:
+                    raise AssertionError(f"{label}: rank {r['rank']} never "
+                                         f"launched {k}")
+            if r["vote_calls"].get("cuda", 0) == 0:
+                raise AssertionError(f"{label}: rank {r['rank']} did not run "
+                                     f"the vote on the card: "
+                                     f"{r['vote_calls']}")
+    if score["f1"] < 0.8:
+        raise AssertionError(f"F1 {score['f1']} < 0.8")
+    return [r["launches"] for r in res["multi_process"]["ranks"]]
+
+
+def phase_profile(device, coverage, n_ins, seed, threads, size=300_000):
+    """The CLI with --profile_dir at 300 kb, then
+    telr_tpu_torch/tools/profile_report.py on its trace: per-stage device
+    seconds and top kernels.  Fails unless alignment and assembly each spent
+    time in both wavefront kernels, and no stage has more device time than
+    wall."""
+    from telr_tpu_torch.tools import profile_report
+    with tempfile.TemporaryDirectory(prefix="telr_smoke_") as work:
+        inputs, _truth, n_reads, _n_bases, _score = simulate(
+            work, size, coverage, n_ins, seed)
+        trace_dir = os.path.join(work, "trace")
+        res, launches, _shapes, _v, _d, wall, _peak = run_cli(
+            device, inputs, os.path.join(work, "out"), threads, coverage,
+            ["--profile_dir", trace_dir])
+        rep = profile_report.report(trace_dir, top=50)
+    print(f"profile: {size / 1e6:g} Mb, {n_reads} reads: wall {wall:.1f} s "
+          f"under the profiler, trace {rep['trace_bytes']} bytes, devices "
+          f"{rep['devices']}, launches {json.dumps(launches)}", flush=True)
+    traced = {}
+    for row in rep["stages"]:
+        tops = ", ".join(f"{k['name']} {k['s']:.4f} s x{k['count']}"
+                         for k in row["top"][:5])
+        print(f"profile: {row['stage']}: wall {row['wall_s']:.3f} s, device "
+              f"{row['device_s']:.4f} s ({row['busy_share'] * 100:.2f}%)"
+              + (f"; {tops}" if tops else ""), flush=True)
+        for k in row["top"]:
+            traced[k["name"]] = traced.get(k["name"], 0) + k["count"]
+    kernels = {k: v for k, v in traced.items() if k.endswith("_kernel")}
+    print(f"profile: device total {rep['device_total_s']:.4f} s, outside "
+          f"every stage {rep['unattributed_device_s']:.4f} s; kernel events "
+          f"in the trace {json.dumps(kernels)}", flush=True)
+    by = {row["stage"]: row for row in rep["stages"]}
+    if set(by) != set(res.stage_seconds):
+        raise AssertionError(f"trace stages {sorted(by)} != run stages "
+                             f"{sorted(res.stage_seconds)}")
+    for stage in ("alignment", "assembly"):
+        secs = {k["name"]: k["s"] for k in by[stage]["top"]}
+        for kernel in ("wavefront_dp_kernel", "wavefront_walk_kernel"):
+            if not secs.get(kernel, 0) > 0:
+                raise AssertionError(f"the trace gives {stage} no {kernel} "
+                                     "time")
+    for row in rep["stages"]:
+        if row["device_s"] > row["wall_s"]:
+            raise AssertionError(f"{row['stage']}: device {row['device_s']} s "
+                                 f"> wall {row['wall_s']} s")
+
+
 def walk_lines(kernel, results):
     """One line per walk case: the longest walk and the time a step of it
     took (the launch's time over that walk's steps)."""
@@ -1117,7 +1219,9 @@ def walk_lines(kernel, results):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--size", type=int, default=3_000_000,
-                    help="simulated genome bases of the two pipeline phases")
+                    help="simulated genome bases of the pipeline and "
+                         "multiprocess phases (pipeline-mesh takes at most "
+                         "MESH_SIZE)")
     ap.add_argument("--coverage", type=int, default=30)
     ap.add_argument("--n-ins", type=int, default=10)
     ap.add_argument("--seed", type=int, default=3)
@@ -1197,14 +1301,23 @@ def main(argv=None):
                                   args.n_ins, args.seed, threads)
         done("pipeline")
     if "pipeline-mesh" in phases:
-        mesh_launches = phase_pipeline(device, args.size, args.coverage,
-                                       args.n_ins, args.seed, threads,
-                                       mesh=True)
+        mesh_launches = phase_pipeline(device, min(args.size, MESH_SIZE),
+                                       args.coverage, args.n_ins, args.seed,
+                                       threads, mesh=True)
         done("pipeline-mesh")
     if "mesh-identity" in phases:
         phase_mesh_identity(device, args.coverage, args.n_ins, args.seed,
                             threads)
         done("mesh-identity")
+    if "multiprocess" in phases:
+        # two ranks share the host's cores: the same thread budget each
+        mp_launches = phase_multiprocess(args.size, args.coverage,
+                                         args.n_ins, args.seed,
+                                         max(1, threads // 2))
+        done("multiprocess")
+    if "profile" in phases:
+        phase_profile(device, args.coverage, args.n_ins, args.seed, threads)
+        done("profile")
 
     for mod in ("jax", "telr_tpu"):
         if mod in sys.modules:
@@ -1258,7 +1371,8 @@ def main(argv=None):
                 max_abs_err=max(r[key + "_err"] for r in results + tiles),
                 ms=bench[key + "_ms"], plain_ms=bench[key + "_plain_ms"],
                 bound_ms=bench[key + "_bound_ms"],
-                bound_by=bench[key + "_bound_by"], library_ms=None)
+                bound_by=bench[key + "_bound_by"], library_ms=None,
+                mp_launches_per_rank=[r[name] for r in mp_launches])
         kernels.append(entry)
     # library_ms is null throughout: no single PyTorch call computes a
     # banded affine-gap DP or a traceback walk

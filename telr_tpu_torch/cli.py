@@ -89,8 +89,9 @@ def get_args(argv=None):
                    help="per-stage checkpoint directory (resume after the "
                         "last completed stage)")
     p.add_argument("--profile_dir", default=None,
-                   help="profiler trace of the run; not ported yet: "
-                        "raises NotImplementedError")
+                   help="write a torch.profiler trace of the run here, one "
+                        "telr_stage:<name> span per stage "
+                        "(telr_tpu_torch/tools/profile_report.py reads it)")
     args = p.parse_args(argv)
 
     for path in (args.reads, args.reference, args.library):
@@ -154,10 +155,6 @@ def main(argv=None):
     from telr_tpu_torch.utils.procpool import ensure_forkserver
     ensure_forkserver()   # before CUDA starts threads (see procpool.py)
     args = get_args(argv)
-    if args.profile_dir:
-        raise NotImplementedError(
-            "--profile_dir needs the torch.profiler trace, which is not "
-            "ported yet (ROADMAP queue 1: --profile_dir via torch.profiler)")
     from telr_tpu_torch.utils.device import resolve
     # the card unless the CPU was asked for; no card and no --device cpu
     # raises here, before any stage runs
@@ -176,7 +173,8 @@ def main(argv=None):
         from telr_tpu_torch.dist.mesh import make_mesh
         mesh = make_mesh(args.mesh_devices, device=device)
     result = run_pipeline(args.reads, args.reference, args.library, out, cfg,
-                          checkpoint_dir=ckpt_dir, device=device, mesh=mesh)
+                          checkpoint_dir=ckpt_dir, device=device, mesh=mesh,
+                          profile_dir=args.profile_dir)
     print("TELR finished!")
     return result
 

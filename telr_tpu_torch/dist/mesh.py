@@ -13,12 +13,17 @@ A Mesh is a ("reads", "loci") grid of torch devices driven by ONE process:
 each shard's tensors live on its own device and the steps in dist/ loop over
 the shards.  On CUDA the shards are distinct cards; with device="cpu" every
 shard is the CPU, which is how the tests run an n-shard mesh on one host.
-Multi-process meshes (one process per card, torch.distributed collectives)
-are not ported yet: `init_distributed` raises.
+
+Several processes (dist/runner.py) join one torch.distributed process group
+through `init_distributed`; `process_mesh` is then the one-shard-per-process
+mesh of the whole group, and its collectives (dist/redistribute.py's `_mp`
+functions, the runner's object all-gather) move host tensors over gloo.
+Each rank's kernels run on its own card (utils/device.py::resolve).
 """
 
 from __future__ import annotations
 
+import datetime
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -26,16 +31,58 @@ import numpy as np
 READS_AXIS = "reads"
 LOCI_AXIS = "loci"
 
+# how long a collective may wait for the other ranks before it fails: a rank
+# that died must end the run, never hang it
+DEFAULT_TIMEOUT = datetime.timedelta(minutes=30)
+
 
 def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
-                     process_id: Optional[int] = None) -> None:
-    """Multi-host bring-up (no-op on a single process)."""
-    if num_processes and num_processes > 1:
+                     process_id: Optional[int] = None,
+                     backend: str = "gloo",
+                     timeout: datetime.timedelta = DEFAULT_TIMEOUT) -> None:
+    """Join the torch.distributed process group of `num_processes` ranks
+    whose rank 0 listens at `coordinator` ("host:port"); a no-op for a
+    single process.  Collectives go over gloo on host tensors, whatever
+    device the rank's kernels use."""
+    if backend == "nccl":
         raise NotImplementedError(
-            "multi-process meshes need dist/runner.py on torch.distributed, "
-            "which is not ported yet (ROADMAP, what remains: the "
-            "multi-process runner)")
+            "NCCL collectives are not ported: they need two or more cards "
+            "(ROADMAP, what remains, item 1: NCCL across >= 2 cards); use "
+            "backend=\"gloo\"")
+    if backend != "gloo":
+        raise ValueError(f"unknown backend {backend!r}; the port runs its "
+                         "collectives over gloo")
+    if not num_processes or num_processes <= 1:
+        return
+    if coordinator is None or process_id is None:
+        raise ValueError("a process group of several ranks needs the "
+                         "coordinator's address and this process' rank")
+    import torch.distributed as dist
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                            world_size=num_processes, rank=process_id,
+                            timeout=timeout)
+
+
+def _group_initialized() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def process_index() -> int:
+    """This process' rank in the process group (0 without one)."""
+    if not _group_initialized():
+        return 0
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
+def process_count() -> int:
+    """The process group's size (1 without one)."""
+    if not _group_initialized():
+        return 1
+    import torch.distributed as dist
+    return dist.get_world_size()
 
 
 class Mesh:
@@ -116,6 +163,23 @@ def make_mesh(n_devices: Optional[int] = None, loci_parallel: int = 1,
     grid = [devices[r * loci_parallel:(r + 1) * loci_parallel]
             for r in range(n // loci_parallel)]
     return Mesh(grid, (READS_AXIS, LOCI_AXIS))
+
+
+def process_mesh(device=None) -> Mesh:
+    """The ("reads", "loci") mesh of the whole process group: one row per
+    rank, row r holding rank r's device (cuda:(r % cards), or the CPU when
+    device="cpu" is asked for).  The collectives read its size; the rows
+    name where each rank runs."""
+    import torch
+    from telr_tpu_torch.utils.device import resolve
+    dev = resolve(device)
+    n = process_count()
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        rows = [[torch.device("cuda", r % cards)] for r in range(n)]
+    else:
+        rows = [[dev] for _ in range(n)]
+    return Mesh(rows, (READS_AXIS, LOCI_AXIS))
 
 
 def shard_slices(total: int, devices):

@@ -11,17 +11,21 @@ one process the all-to-all over the "reads" axis is an exchange of the
 (src, dst) blocks between the shards' tensors: shard `dst` gathers block
 [src, dst] from every source shard's device (device-to-device copies where
 the shards sit on different cards).  A numpy reference implementation
-provides the test oracle.  The multi-process collectives
-(redistribute_payloads_mp, exchange_bytes_mp) are not ported yet.
+provides the test oracle.
+
+Across processes (redistribute_payloads_mp, exchange_bytes_mp) each rank
+packs only its own send row and one torch.distributed all_to_all_single per
+array and round moves the (src, dst) blocks, on host tensors over gloo.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from telr_tpu_torch.dist.mesh import READS_AXIS, Mesh
+from telr_tpu_torch.dist.mesh import (READS_AXIS, Mesh, process_count,
+                                      process_index)
 
 
 def owner_of(locus_id: int, n_shards: int) -> int:
@@ -193,6 +197,137 @@ def unpack_payload_received(
         items.sort(key=lambda x: (x[0], x[2], x[1]))
         out.append(items)
     return out
+
+
+def _pack_local_row(
+    items: Sequence[Tuple[int, int, int, np.ndarray]],
+    n_shards: int, capacity: int, l_pad: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """One source shard's send row: (1, S, cap, HDR) + (1, S, cap, l_pad)."""
+    hdr = np.full((1, n_shards, capacity, HDR_COLS), -1, dtype=np.int32)
+    codes = np.full((1, n_shards, capacity, l_pad), -1, dtype=np.int8)
+    counts = np.zeros(n_shards, dtype=np.int64)
+    for locus_id, rank, kind, rc in items:
+        dst = owner_of(locus_id, n_shards)
+        c = counts[dst]
+        if c >= capacity:
+            raise ValueError(f"route ->{dst} exceeds capacity {capacity}")
+        hdr[0, dst, c] = (locus_id, rank, len(rc), kind)
+        codes[0, dst, c, :len(rc)] = rc
+        counts[dst] += 1
+    return hdr, codes
+
+
+def _exchange_row(row: np.ndarray) -> np.ndarray:
+    """All-to-all of this process' (1, S, ...) send row over the process
+    group: returns (1, S, ...) where [0, src] is what src sent here."""
+    import torch
+    import torch.distributed as dist
+    send = torch.from_numpy(np.ascontiguousarray(row[0]))
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send)
+    return recv.numpy()[None]
+
+
+def redistribute_payloads_mp(
+    mesh: Mesh,
+    local_items: Sequence[Tuple[int, int, int, np.ndarray]],
+    max_bytes: int = 256 << 20,
+) -> List[Tuple[int, int, int, np.ndarray]]:
+    """Multi-process payload all-to-all: THIS process contributes the send
+    row for its own source shard and receives only the items whose loci it
+    owns.  Buffer geometry (l_pad, capacity, round count) is agreed across
+    processes with a scalar all-gather; rounds bound resident bytes.
+
+    `mesh` is the group's dist.mesh.process_mesh (one shard a process).
+    Works identically in a single process (mesh of 1), where it degrades
+    to a self-route that touches no collective."""
+    n = int(mesh.shape[READS_AXIS])
+    n_procs = process_count()
+    pid = process_index()
+    if n != n_procs:
+        raise ValueError(f"the mesh has {n} shards along {READS_AXIS!r}, the "
+                         f"process group {n_procs} ranks: pass "
+                         "dist.mesh.process_mesh()")
+
+    longest = max((len(it[3]) for it in local_items), default=1)
+    route_counts: Dict[int, int] = {}
+    for it in local_items:
+        d = owner_of(it[0], n)
+        route_counts[d] = route_counts.get(d, 0) + 1
+    local_max = np.array([longest, max(route_counts.values(), default=0)],
+                         dtype=np.int64)
+    if n_procs > 1:
+        import torch
+        import torch.distributed as dist
+        parts = [torch.zeros(2, dtype=torch.int64) for _ in range(n_procs)]
+        dist.all_gather(parts, torch.from_numpy(local_max))
+        gmax = torch.stack(parts).numpy().max(axis=0)
+    else:
+        gmax = local_max
+    l_pad = 1 << max(7, (int(gmax[0]) - 1).bit_length())
+    cap_budget = max(1, max_bytes // (n * l_pad))
+    cap = min(cap_budget, max(1, int(gmax[1])))
+    cap = 1 << (cap - 1).bit_length()
+    n_rounds = -(-max(1, int(gmax[1])) // cap)
+
+    rounds: List[List] = [[] for _ in range(n_rounds)]
+    counts = {}
+    for it in local_items:
+        d = owner_of(it[0], n)
+        c = counts.get(d, 0)
+        counts[d] = c + 1
+        rounds[c // cap].append(it)
+
+    got: List[Tuple[int, int, int, np.ndarray]] = []
+    for rnd in rounds:
+        h, c = _pack_local_row(rnd, n, cap, l_pad)
+        if n_procs > 1:
+            h, c = _exchange_row(h), _exchange_row(c)
+        hrow = h.reshape(-1, HDR_COLS)
+        crow = c.reshape(-1, c.shape[-1])
+        keep = hrow[:, 0] >= 0
+        got.extend((int(hh[0]), int(hh[1]), int(hh[3]), cc[:hh[2]].copy())
+                   for hh, cc in zip(hrow[keep], crow[keep]))
+    got.sort(key=lambda x: (x[0], x[2], x[1]))
+    for li, _rank, _kind, _c in got:
+        if owner_of(li, n) != pid:
+            raise RuntimeError(f"received locus {li} not owned by shard "
+                               f"{pid}")
+    return got
+
+
+def exchange_bytes_mp(
+    mesh: Mesh,
+    per_dst: Sequence[bytes],
+    chunk: int = 4 << 20,
+    max_bytes: int = 256 << 20,
+) -> List[bytes]:
+    """Generic multi-process byte all-to-all over the process group.
+
+    per_dst[d] = the blob THIS process sends to process d (len == P).
+    Returns the list of blobs this process received, indexed by source.
+    Implemented on redistribute_payloads_mp by encoding the destination as
+    the routed key (owner_of(d, P) == d), the chunk sequence number as the
+    rank and the source pid as the kind; the chunked rounds bound resident
+    bytes exactly like the read-payload path."""
+    n = int(mesh.shape[READS_AXIS])
+    pid = process_index()
+    items: List[Tuple[int, int, int, np.ndarray]] = []
+    for d, blob in enumerate(per_dst):
+        arr = np.frombuffer(blob, dtype=np.uint8).view(np.int8)
+        if len(arr) == 0:
+            items.append((d, 0, pid, arr))
+            continue
+        for seq, off in enumerate(range(0, len(arr), chunk)):
+            items.append((d, seq, pid, arr[off:off + chunk]))
+    got = redistribute_payloads_mp(mesh, items, max_bytes=max_bytes)
+    # got is sorted by (dst=pid, src, seq) — reassemble per source
+    parts: Dict[int, List[np.ndarray]] = {}
+    for _d, _seq, src, codes in got:
+        parts.setdefault(src, []).append(codes)
+    return [b"".join(c.view(np.uint8).tobytes() for c in parts.get(s, []))
+            for s in range(n)]
 
 
 def redistribute_payloads(

@@ -139,6 +139,37 @@ def _input_fingerprint(paths, config: TELRConfig) -> str:
     return h.hexdigest()
 
 
+PROFILE_TRACE = "telr.trace.json.gz"
+
+
+def _start_profiler(device):
+    """A running torch.profiler over the host and, on a card, its kernels
+    and copies.  No shapes, stacks or memory events: a trace holds one small
+    record per torch op, launch and device event, a few per kernel launch on
+    a card.  Under device="cpu" every op of the kernels' plain versions is
+    in it too, which on the mesh path runs to hundreds of MB."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities, record_shapes=False,
+                                  with_stack=False, profile_memory=False,
+                                  with_flops=False, with_modules=False)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, profile_dir: str) -> None:
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, PROFILE_TRACE)
+    prof.export_chrome_trace(path)
+    size = os.path.getsize(path)
+    logger.info("profiler trace written to %s (%d bytes)", path, size)
+    print(f"profiler trace: {path} ({size} bytes)")
+
+
 @dataclasses.dataclass
 class PipelineResult:
     sample_name: str
@@ -166,6 +197,7 @@ def run_pipeline(
     checkpoint_dir: Optional[str] = None,
     device=None,
     mesh=None,
+    profile_dir: Optional[str] = None,
 ) -> PipelineResult:
     """device: where the wavefront DP kernels and the assembly vote run
     (None: the first CUDA card, and a RuntimeError when there is none;
@@ -174,12 +206,18 @@ def run_pipeline(
     mesh: optional dist.mesh.Mesh with a "reads" axis.  When given,
     stage-1 DP batches execute sharded over the mesh, candidate loci are
     redistributed with the device all-to-all before assembly, and AF depth
-    reductions are summed over the "reads" axis."""
+    reductions are summed over the "reads" axis.
+
+    profile_dir: write a torch.profiler trace of the run there
+    (PROFILE_TRACE, gzipped chrome JSON) with one `telr_stage:<name>` span
+    per stage; telr_tpu_torch/tools/profile_report.py attributes the
+    card's kernels and copies to the stages."""
     from telr_tpu_torch.utils.procpool import ensure_forkserver
     ensure_forkserver()   # before CUDA starts threads (see procpool.py)
     from telr_tpu_torch.utils.device import resolve
     device = resolve(device)
     config = config or default_config()
+    prof = _start_profiler(device) if profile_dir else None
     os.makedirs(out_dir, exist_ok=True)
     if sample_name is None:
         sample_name = os.path.splitext(os.path.basename(reads_path))[0]
@@ -208,12 +246,24 @@ def run_pipeline(
     def timed(name):
         class _T:
             def __enter__(self):
-                self.t0 = time.time()
                 logger.info("stage %s ...", name)
+                if prof is not None:
+                    # the stage's span in the profiler trace, so
+                    # tools/profile_report.py can attribute device time.
+                    # The C++ RecordFunction costs a few microseconds a
+                    # span where torch.profiler.record_function costs tens,
+                    # which a stage of a millisecond would show
+                    import torch
+                    self._span = torch._C._profiler._RecordFunctionFast(
+                        f"telr_stage:{name}")
+                    self._span.__enter__()
+                self.t0 = time.time()
                 return self
 
             def __exit__(self, *a):
                 stage_seconds[name] = time.time() - self.t0
+                if prof is not None:
+                    self._span.__exit__(None, None, None)
                 logger.info("stage %s finished in %.2fs", name,
                             stage_seconds[name])
         return _T()
@@ -404,6 +454,9 @@ def run_pipeline(
             json.dump(summary, f, indent=4, sort_keys=False)
         with open(os.path.join(out_dir, "liftover_report.json"), "w") as f:
             json.dump(lift_report, f, indent=4, sort_keys=False)
+
+    if prof is not None:
+        _stop_profiler(prof, profile_dir)
 
     if not final:
         print("No non-reference TE insertion found")

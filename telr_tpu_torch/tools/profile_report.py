@@ -1,0 +1,153 @@
+"""Per-stage device time from the port's torch.profiler trace.
+
+Run the pipeline with --profile_dir DIR (python -m telr_tpu_torch.cli ...),
+then:
+
+    python -m telr_tpu_torch.tools.profile_report DIR [--out JSON] [--top N]
+
+Finds the `telr_stage:<name>` spans the pipeline emits (pipeline.py timed())
+and attributes every CUDA kernel, memcpy and memset the trace holds to the
+stage whose span holds the host call that issued it (matched by the
+profiler's correlation id; an event without one goes by its own start).
+Writes a JSON table: per stage its wall seconds, device seconds, the card's
+busy share, and its top kernels by time with their counts.  A trace taken
+with --device cpu has no device events: every stage then reads 0 s.
+"""
+
+from __future__ import annotations
+
+import argparse
+import bisect
+import glob
+import gzip
+import json
+import os
+import re
+from collections import defaultdict
+
+STAGE_PREFIX = "telr_stage:"
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+# device-side events, and the profiler's device-side copies of host spans
+HOST_SKIP = DEVICE_CATS + ("gpu_user_annotation",)
+
+
+def find_trace(path: str) -> str:
+    """The trace file itself, or the newest chrome trace under a directory."""
+    if os.path.isfile(path):
+        return path
+    found = [p for pat in ("*.json.gz", "*.json")
+             for p in glob.glob(os.path.join(path, "**", pat),
+                                recursive=True)
+             if not p.endswith("profile_report.json")]
+    if not found:
+        raise FileNotFoundError(f"no chrome trace (*.json[.gz]) under {path}")
+    return max(found, key=os.path.getmtime)
+
+
+def load_trace(path: str) -> dict:
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as f:
+        return json.load(f)
+
+
+def kernel_name(name: str) -> str:
+    """A kernel's function name without its return type, anonymous
+    namespace, template arguments and parameters:
+    "void (anonymous namespace)::wavefront_dp_kernel<true, 4>(...)" ->
+    "wavefront_dp_kernel"."""
+    name = re.sub(r"^void\s+", "", name).replace("(anonymous namespace)::",
+                                                  "")
+    return re.split(r"[<(]", name, maxsplit=1)[0].strip()
+
+
+def build_report(trace: dict, top: int = 5) -> dict:
+    events = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
+    stages = sorted(
+        ((e["name"][len(STAGE_PREFIX):], float(e["ts"]),
+          float(e["ts"]) + float(e.get("dur", 0)))
+         for e in events if e.get("cat") not in HOST_SKIP
+         and str(e.get("name", "")).startswith(STAGE_PREFIX)),
+        key=lambda s: s[1])
+    starts = [s[1] for s in stages]
+    launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                 if e.get("cat") in LAUNCH_CATS
+                 and "correlation" in e.get("args", {})}
+
+    dev_s = defaultdict(float)
+    kernels = defaultdict(lambda: defaultdict(lambda: [0.0, 0]))
+    total = unattributed = 0.0
+    for e in events:
+        cat = e.get("cat")
+        if cat not in DEVICE_CATS:
+            continue
+        dur = float(e.get("dur", 0)) / 1e6
+        total += dur
+        t = launch_ts.get(e.get("args", {}).get("correlation"),
+                          float(e["ts"]))
+        k = bisect.bisect_right(starts, t) - 1
+        if k < 0 or t >= stages[k][2]:
+            unattributed += dur
+            continue
+        stage = stages[k][0]
+        dev_s[stage] += dur
+        name = kernel_name(e["name"]) if cat == "kernel" else e["name"]
+        entry = kernels[stage][name]
+        entry[0] += dur
+        entry[1] += 1
+
+    table = []
+    for name, s0, s1 in stages:
+        wall = (s1 - s0) / 1e6
+        busy = sorted(kernels[name].items(), key=lambda kv: -kv[1][0])
+        table.append({
+            "stage": name, "wall_s": wall, "device_s": dev_s[name],
+            "busy_share": dev_s[name] / wall if wall else 0.0,
+            "top": [{"name": n, "s": s, "count": c}
+                    for n, (s, c) in busy[:top]],
+        })
+    return {"stages": table, "device_total_s": total,
+            "unattributed_device_s": unattributed,
+            "devices": [d.get("name") for d in
+                        trace.get("deviceProperties", [])]}
+
+
+def report(path: str, top: int = 5) -> dict:
+    """build_report on the trace at `path` (a file or a --profile_dir)."""
+    trace_path = find_trace(path)
+    out = build_report(load_trace(trace_path), top)
+    out["trace"] = trace_path
+    out["trace_bytes"] = os.path.getsize(trace_path)
+    return out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("profile_dir", help="a --profile_dir, or a trace file")
+    ap.add_argument("--out", default=None,
+                    help="the JSON table (default: "
+                         "PROFILE_DIR/profile_report.json)")
+    ap.add_argument("--top", type=int, default=5,
+                    help="kernels listed per stage")
+    a = ap.parse_args(argv)
+    rep = report(a.profile_dir, a.top)
+    out = a.out or os.path.join(
+        a.profile_dir if os.path.isdir(a.profile_dir)
+        else os.path.dirname(os.path.abspath(a.profile_dir)),
+        "profile_report.json")
+    with open(out, "w") as f:
+        json.dump(rep, f, indent=2)
+    for row in rep["stages"]:
+        tops = ", ".join(f"{k['name']} {k['s']:.4f} s x{k['count']}"
+                         for k in row["top"])
+        print(f"{row['stage']:20s} wall {row['wall_s']:9.3f} s   device "
+              f"{row['device_s']:9.4f} s ({row['busy_share'] * 100:5.2f}%)"
+              + (f"   {tops}" if tops else ""))
+    print(f"devices: {rep['devices']}; trace {rep['trace']} "
+          f"({rep['trace_bytes']} bytes); device total "
+          f"{rep['device_total_s']:.4f} s, outside every stage "
+          f"{rep['unattributed_device_s']:.4f} s")
+
+
+if __name__ == "__main__":
+    main()

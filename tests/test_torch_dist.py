@@ -71,9 +71,53 @@ def test_make_mesh_refuses_more_cards_than_there_are(monkeypatch):
 
 
 def test_init_distributed_is_not_ported():
-    tmesh.init_distributed()          # a single process is a no-op
+    """A single process stays a no-op, with no process group; NCCL is not
+    ported and names its ROADMAP item; no other backend is taken."""
+    tmesh.init_distributed()
+    tmesh.init_distributed("localhost:1", 1, 0)
+    assert not torch.distributed.is_initialized()
+    assert (tmesh.process_index(), tmesh.process_count()) == (0, 1)
+    assert tmesh.process_mesh("cpu").shape == {"reads": 1, "loci": 1}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmesh.init_distributed("localhost:1", 2, 0)
+        tmesh.init_distributed("localhost:1", 2, 0, backend="nccl")
+    with pytest.raises(ValueError, match="gloo"):
+        tmesh.init_distributed("localhost:1", 2, 0, backend="mpi")
+
+
+_GROUP_WORKER = """
+import sys, datetime
+import torch
+from telr_tpu_torch.dist import mesh
+from telr_tpu_torch.dist.runner import _allgather_obj
+from telr_tpu_torch.utils.device import resolve
+n, r, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+mesh.init_distributed(f"localhost:{port}", n, r,
+                      timeout=datetime.timedelta(seconds=60))
+assert (mesh.process_index(), mesh.process_count()) == (r, n)
+assert _allgather_obj({"rank": r}) == [{"rank": k} for k in range(n)]
+pm = mesh.process_mesh("cpu")
+assert pm.shape == {"reads": n, "loci": 1}
+assert resolve("cpu").type == "cpu"
+torch.cuda.is_available = lambda: True
+torch.cuda.device_count = lambda: 1
+assert str(resolve(None)) == "cuda:0" and str(resolve("cuda")) == "cuda:0"
+torch.cuda.device_count = lambda: 4
+assert str(resolve(None)) == f"cuda:{r}"
+assert [str(d) for d in mesh.process_mesh().flat_devices()] == [
+    f"cuda:{k}" for k in range(n)]
+"""
+
+
+def test_init_distributed_two_process_group():
+    """Two ranks over gloo: ranks, the object all-gather, the group's mesh,
+    and each rank's card (rank % cards)."""
+    import sys
+
+    from telr_tpu_torch.tools.two_process_pipeline import (free_port,
+                                                           run_ranks)
+    port = str(free_port())
+    run_ranks([[sys.executable, "-c", _GROUP_WORKER, "2", str(r), port]
+               for r in range(2)], timeout_s=120)
 
 
 def test_pad_to_multiple_equals_jax():

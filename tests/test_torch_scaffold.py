@@ -24,7 +24,7 @@ CARRIES = [
     "liftover/cli.py", "report/__init__.py", "report/output.py",
     "utils/__init__.py", "utils/evallog.py", "utils/hoststats.py",
     "utils/procpool.py", "utils/checkpoint.py", "assembly/__init__.py",
-    "assembly/local.py",
+    "assembly/local.py", "dist/regions.py",
 ]
 
 # module -> (why it differs, most changed lines allowed)
@@ -79,7 +79,14 @@ def test_carried_module_equals_reference(rel):
         assert not changed, changed
 
 
+# the modules of the multi-process slice, which the import check must cover
+MP_MODULES = ["telr_tpu_torch.dist.runner", "telr_tpu_torch.dist.regions",
+              "telr_tpu_torch.tools.two_process_pipeline",
+              "telr_tpu_torch.tools.profile_report"]
+
+
 def test_port_never_imports_jax():
+    assert set(MP_MODULES) <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}:\n"
@@ -103,13 +110,20 @@ def test_port_never_imports_jax():
                                   ["--profile_dir", "trace",
                                    "--mesh_devices", "2"]])
 def test_unported_flags_raise(flag, tmp_path):
+    """--profile_dir, with and without a mesh, writes the run's trace with
+    its stage spans (on the CPU: --device cpu)."""
     from telr_tpu_torch import cli
+    from telr_tpu_torch.pipeline import PROFILE_TRACE
+    from telr_tpu_torch.tools import profile_report
     f = tmp_path / "x.fa"
     f.write_text(">a\nACGT\n")
-    argv = ["-i", str(f), "-r", str(f), "-l", str(f), "-o",
-            str(tmp_path / "out")] + flag
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(argv)
+    flag = [str(tmp_path / x) if x == "trace" else x for x in flag]
+    res = cli.main(["-i", str(f), "-r", str(f), "-l", str(f), "-o",
+                    str(tmp_path / "out"), "--device", "cpu"] + flag)
+    rep = profile_report.report(str(tmp_path / "trace"))
+    assert rep["trace"] == str(tmp_path / "trace" / PROFILE_TRACE)
+    assert [r["stage"] for r in rep["stages"]] == list(res.stage_seconds)
+    assert rep["device_total_s"] == 0
 
 
 def test_cli_builds_the_mesh(monkeypatch, tmp_path):
@@ -169,7 +183,9 @@ def test_resolve_raises_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["run_pipeline", "make_mesh",
                                    "wavefront_align", "vote_many",
-                                   "banded_dp_batch", "banded_dp_scores"])
+                                   "banded_dp_batch", "banded_dp_scores",
+                                   "run_pipeline_multiprocess",
+                                   "two_process_pipeline"])
 def test_entry_points_do_not_fall_back_to_the_cpu(entry, monkeypatch,
                                                   tmp_path):
     """Without a card and without device="cpu" every entry point raises."""
@@ -198,6 +214,13 @@ def test_entry_points_do_not_fall_back_to_the_cpu(entry, monkeypatch,
         elif entry == "vote_many":
             from telr_tpu_torch.assembly.device_vote import vote_many
             vote_many([(q[0], [])])
+        elif entry == "run_pipeline_multiprocess":
+            from telr_tpu_torch.dist.runner import run_pipeline_multiprocess
+            run_pipeline_multiprocess(str(f), str(f), str(f),
+                                      str(tmp_path / "out"))
+        elif entry == "two_process_pipeline":
+            from telr_tpu_torch.tools import two_process_pipeline
+            two_process_pipeline.run([str(f)] * 3, str(tmp_path / "out"))
         else:
             from telr_tpu_torch.kernels import dp
             getattr(dp, entry)(*dp_args, **dp_kw)
@@ -216,10 +239,12 @@ def test_cli_raises_without_a_card_before_any_stage(monkeypatch, tmp_path):
     f.write_text(">a\nACGT\n")
     base = ["-i", str(f), "-r", str(f), "-l", str(f), "-o",
             str(tmp_path / "out")]
-    for extra in ([], ["--device", "cuda"], ["--mesh_devices", "2"]):
+    for extra in ([], ["--device", "cuda"], ["--mesh_devices", "2"],
+                  ["--profile_dir", str(tmp_path / "trace")]):
         with pytest.raises(RuntimeError, match="--device cpu"):
             cli.main(base + extra)
     assert not ran and not (tmp_path / "out").exists()
+    assert not (tmp_path / "trace").exists()
 
 
 def test_device_cpu_auto_routes_to_the_host_engine(monkeypatch, tmp_path):
