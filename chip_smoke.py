@@ -53,8 +53,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                byte against a --wavefront off run without a mesh (the
                native host engine);
   8. multiprocess  run_pipeline_multiprocess through
-               telr_tpu_torch/tools/two_process_pipeline.py on the same
-               genome (auto routing, --device cuda): one process, then two
+               telr_tpu_torch/tools/two_process_pipeline.py on a genome of
+               the same make cut to MP_SIZE with MP_N_INS insertions (1 Mb
+               and 5, for the time limit since the card-route, eval and bench
+               phases joined the script; auto routing, --device cuda): one
+               process, then two
                that share the card with collectives over gloo.  Fails unless
                the runs' seven files are byte-identical, every rank launched
                both wavefront kernels and ran the vote on the card, and
@@ -64,7 +67,23 @@ Phases, in order; any failure raises and the script exits non-zero:
                telr_tpu_torch/tools/profile_report.py on its trace: per-stage
                device seconds and top kernels, the trace's size.  Fails
                unless alignment and assembly each show time in both
-               wavefront kernels and no stage has more device time than wall.
+               wavefront kernels and no stage has more device time than wall;
+ 10. card-route  the CLI on telr_tpu_torch/tools/bench_pipeline.py's
+               small_dataset with --wavefront_stages alignment,assembly and
+               the mappers' size gate at 0, with --device cuda and with
+               --device cpu (the kernels' plain versions, which the CPU tests
+               hold to the JAX package's files on the same route).  Fails
+               unless the nine files are byte-identical and both wavefront
+               kernels launched on the card;
+ 11. eval      telr_tpu_torch/tools/genome_eval.py's run_eval on the card,
+               auto routing: 1 Mb in two chromosomes, ONT-like reads and the
+               ONT preset, the pipeline phases' coverage, insertions and
+               seed.  Fails unless F1 >= 0.8 and both wavefront kernels
+               launched;
+ 12. bench     telr_tpu_torch/tools/bench.py with 3 trials (the score-only
+               wavefront DP on bench.py's workload, and its traceback path).
+               Fails unless the kernel's gscore and best of the 64 pairs
+               equal the plain version's (timed there).
 
 Every kernel's launch count is set to 0 just before the phase that drives its
 path and read just after.  The last lines are a JSON summary of the kernels
@@ -85,7 +104,16 @@ import time
 
 import numpy as np
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
+try:
+    # the least time the card could take (roofline.bounds), the operations
+    # a band cell or walk step costs
+    from telr_tpu_torch.tools.roofline import (ROWBAND_OPS, WALK_OPS_PER_STEP,
+                                               WAVEFRONT_OPS, bounds)
+    # tools/genome_eval.py's dataset as the port's tools write it
+    from telr_tpu_torch.tools.two_process_pipeline import simulate
+except ImportError:
+    sys.exit("chip_smoke: telr_tpu_torch/ is not beside this script; run it "
+             "from a checkout of the repository")
 
 OUTPUTS = ("json", "expanded.json", "vcf", "bed", "te.fasta", "contig.fasta")
 # every file a run writes but its provenance and its timestamped log
@@ -102,39 +130,22 @@ KERNELS = {
                      "telr_tpu/kernels/dp.py:379"),
 }
 
-# The least time the card could take (`bounds`).  Memory rate: the H100
-# SXM's 3.35 TB/s.  Integer rate: NVIDIA's data sheet gives 67 TFLOP/s of
-# float32 outside the tensor cores, two operations per lane and clock on 128
-# lanes an SM; the Hopper SM has 64 int32 lanes beside them, one operation
-# each, so 67 / 4 = 16.75 T int32 operations a second.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 16.75e12
-# Integer operations per band cell, one per add / compare / max / select of
-# the recurrences (hopper_dp._rowband_dp_plain, wavefront.py): scores only,
-# and with the direction byte and its bits; and per step of the walk.
-ROWBAND_OPS = {False: 36, True: 54}
-WAVEFRONT_OPS = {False: 34, True: 50}
-WALK_OPS_PER_STEP = 20
-
-
 PHASES = ("parity", "rowband-parity", "walk-tiles", "dist", "pipeline",
-          "pipeline-mesh", "mesh-identity", "multiprocess", "profile")
+          "pipeline-mesh", "mesh-identity", "multiprocess", "profile",
+          "card-route", "eval", "bench")
 # the pipeline-mesh phase's genome: on an NVIDIA H100 80GB HBM3 host the
 # mesh path at 3 Mb took 112-123 s of 802-938 s of phases; at 1 Mb the
 # script keeps its margin to its time limit on a slower host
 MESH_SIZE = 1_000_000
+# the multiprocess phase's genome and insertions: with 10 insertions that
+# phase took 175-231 s at 3 Mb and 172-215 s at 2 Mb on the same card (its
+# assembly follows the loci); at 1 Mb and 5 the new phases (about 230 s)
+# fit beside it
+MP_SIZE = 1_000_000
+MP_N_INS = 5
 # the files run_pipeline_multiprocess writes
 MP_FILES = tuple("reads.telr." + x for x in OUTPUTS) + (
     "reads.loci_eval.tsv",)
-
-
-def bounds(n_bytes, n_ops):
-    """(bound_ms, bound_by): the larger of the bytes the function must move
-    over the memory rate and its operations over the int32 rate."""
-    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / INT32_OPS_PER_S * 1e3
-    return ((by_bytes, "bytes") if by_bytes >= by_ops
-            else (by_ops, "operations"))
 
 
 def _related(rng, lq, lt, n_sub, indel=0):
@@ -909,19 +920,13 @@ def phase_dist(device):
     return score_launches
 
 
-def simulate(workdir, size, coverage, n_ins, seed):
-    """tools/genome_eval.py's dataset, as telr_tpu_torch's multi-process
-    tool writes it (its `simulate`)."""
-    from telr_tpu_torch.tools.two_process_pipeline import simulate as sim
-    return sim(workdir, size, coverage, n_ins, seed)
-
-
-def run_cli(device, inputs, out, threads, coverage, extra=()):
-    """One run of the port's CLI with every launch count set to 0 just
-    before it.  Returns the result, the kernels' launch counts (and, under
-    "shapes", launches by shape and the bytes the mesh runner copied back
-    from the card), the vote and depth-reduction device counts, wall seconds
-    and peak device bytes."""
+def run_cli(device, inputs, out, threads, coverage, extra=(),
+            cli_device="cuda"):
+    """One run of the port's CLI (--device cli_device) with every launch
+    count set to 0 just before it.  Returns the result, the kernels' launch
+    counts (and, under "shapes", launches by shape and the bytes the mesh
+    runner copied back from the card), the vote and depth-reduction device
+    counts, wall seconds and peak device bytes."""
     import torch
     from telr_tpu_torch import cli
     from telr_tpu_torch.assembly.device_vote import vote_many
@@ -932,7 +937,7 @@ def run_cli(device, inputs, out, threads, coverage, extra=()):
     from telr_tpu_torch.utils import hoststats
     reads, ref, lib = inputs
     argv = ["-i", reads, "-r", ref, "-l", lib, "-o", out, "-t", str(threads),
-            "--device", "cuda",
+            "--device", cli_device,
             # tools/genome_eval.py's setting: max(3, coverage // 8)
             "--min_support", str(max(3, coverage // 8))] + list(extra)
     # the runner of the one-card mesh the CLI builds (one per equal mesh)
@@ -1203,6 +1208,115 @@ def phase_profile(device, coverage, n_ins, seed, threads, size=300_000):
                                  f"> wall {row['wall_s']} s")
 
 
+def phase_card_route(device, threads):
+    """The card route against the route the CPU tests hold to the JAX
+    package: the CLI on small_dataset (telr_tpu_torch/tools/bench_pipeline.py:
+    a 12 kb genome, one insertion, 4 kb reads at 8x) with
+    --wavefront_stages alignment,assembly, once with --device cuda (the
+    kernels) and once with --device cpu (their plain versions), the mappers'
+    size gate set to 0 for the phase so the small batches reach the kernels.
+    Fails unless the nine files are byte-identical and both wavefront kernels
+    launched on the card.  Returns the card run's launches."""
+    import torch
+    from telr_tpu_torch.kernels import mapper
+    from telr_tpu_torch.tools.bench_pipeline import small_dataset
+    extra = ["--wavefront_stages", "alignment,assembly"]
+    gate = mapper._WAVE_MIN_CELLS
+    n_threads = torch.get_num_threads()
+    mapper._WAVE_MIN_CELLS = 0
+    try:
+        with tempfile.TemporaryDirectory(prefix="telr_smoke_") as work:
+            inputs, _truth = small_dataset(work)
+            outs, seen = {}, {}
+            for name in ("cuda", "cpu"):
+                outs[name] = os.path.join(work, name)
+                # the plain versions are many small ops: intra-op threads
+                # only contend there
+                torch.set_num_threads(1 if name == "cpu" else n_threads)
+                _res, launches, _s, votes, _d, wall, _p = run_cli(
+                    device, inputs, outs[name], threads, 8, extra,
+                    cli_device=name)
+                seen[name] = (launches, votes, wall)
+            same = []
+            for f in RUN_FILES:
+                with open(os.path.join(outs["cuda"], f), "rb") as a, \
+                        open(os.path.join(outs["cpu"], f), "rb") as b:
+                    same.append(a.read() == b.read())
+    finally:
+        mapper._WAVE_MIN_CELLS = gate
+        torch.set_num_threads(n_threads)
+    (lc, vc, wc), (lp, vp, wp) = seen["cuda"], seen["cpu"]
+    print(f"card-route: small_dataset, stages alignment,assembly, gate 0: "
+          f"--device cuda {wc:.1f} s, launches wavefront_dp "
+          f"{lc['wavefront_dp']} wavefront_walk {lc['wavefront_walk']}, "
+          f"vote calls {json.dumps(vc)}; --device cpu {wp:.1f} s, launches "
+          f"{lp['wavefront_dp']} / {lp['wavefront_walk']}, vote calls "
+          f"{json.dumps(vp)}; {sum(same)} of {len(RUN_FILES)} files "
+          "byte-identical", flush=True)
+    differ = [f for f, ok in zip(RUN_FILES, same) if not ok]
+    if differ:
+        raise AssertionError(f"card and CPU routes differ in {differ}")
+    for k in ("wavefront_dp", "wavefront_walk"):
+        if lc[k] == 0:
+            raise AssertionError(f"the card run never launched {k}")
+        if lp[k] != 0:
+            raise AssertionError(f"the CPU run launched {k} on the card")
+    return lc
+
+
+def phase_eval(coverage, n_ins, seed, threads, size=1_000_000):
+    """telr_tpu_torch/tools/genome_eval.py's run_eval on the card, auto
+    routing: a 1 Mb genome in two chromosomes, ONT-like reads and the ONT
+    preset, the pipeline phases' coverage, insertions and seed.  Fails
+    unless F1 >= 0.8 and both wavefront kernels launched.  Returns the
+    report."""
+    from telr_tpu_torch.tools import genome_eval
+    with tempfile.TemporaryDirectory(prefix="telr_smoke_") as work:
+        rep = genome_eval.run_eval(size=size, coverage=coverage, n_ins=n_ins,
+                                   seed=seed, ont_profile=True, chroms=2,
+                                   threads=threads, workdir=work,
+                                   out_path=os.path.join(work, "eval.json"))
+    sc = rep["score"]
+    print(f"eval: {size / 1e6:g} Mb in 2 chromosomes, ONT, seed {seed}: "
+          f"{rep['workload']['n_reads']} reads, wall {rep['wall_s']} s, "
+          f"precision {sc['precision']} recall {sc['recall']} F1 {sc['f1']} "
+          f"(tp {sc['tp']} fp {sc['fp']} fn {sc['fn']}), family_exact "
+          f"{sc['call_quality'].get('family_exact')}, launches "
+          f"{json.dumps(rep['launches'])}, peak device memory "
+          f"{rep['peak_device_bytes'] / 2**30:.2f} GiB, stage seconds "
+          f"{json.dumps(rep['stage_seconds'])}", flush=True)
+    for k in ("wavefront_dp", "wavefront_walk"):
+        if rep["launches"][k] == 0:
+            raise AssertionError(f"the eval run never launched {k}")
+    if sc["f1"] < 0.8:
+        raise AssertionError(f"eval F1 {sc['f1']} < 0.8")
+    return rep
+
+
+def phase_bench():
+    """telr_tpu_torch/tools/bench.py with 3 trials: the score-only wavefront
+    DP on bench.py's workload, its traceback path, and the kernel's gscore
+    and best of all 64 pairs against the plain version's, which is timed on
+    them.  Returns the record."""
+    from telr_tpu_torch.tools import bench
+    rec = bench.run(trials=3, check_pairs=64)
+    tb = rec["traceback"]
+    print(f"bench: {rec['value']} Gcells/s median of "
+          f"{len(rec['trials_gcells_s'])} trials (min {rec['min']}, max "
+          f"{rec['max']}), band512 {rec['band512_gcells_s']} Gcells/s, "
+          f"{rec['ms_per_launch']:.3f} ms a launch against a bound of "
+          f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}; share "
+          f"{rec['bound_share']:.3f}), {rec['launches']['wavefront_dp_scores']}"
+          f" launches; {rec['checked_pairs']} pairs equal to the plain "
+          f"version ({rec['plain_ms']:.1f} ms); traceback path "
+          f"{tb['median_s_per_iter']:.4f} s a batch "
+          f"({tb['gcells_s']:.2f} Gcells/s), a batch's DP "
+          f"{tb['dp_ms_one_batch']:.3f} ms and walk "
+          f"{tb['walk_ms_one_batch']:.3f} ms, split "
+          f"{json.dumps(tb['split_last_call'])}", flush=True)
+    return rec
+
+
 def walk_lines(kernel, results):
     """One line per walk case: the longest walk and the time a step of it
     took (the launch's time over that walk's steps)."""
@@ -1219,9 +1333,9 @@ def walk_lines(kernel, results):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--size", type=int, default=3_000_000,
-                    help="simulated genome bases of the pipeline and "
-                         "multiprocess phases (pipeline-mesh takes at most "
-                         "MESH_SIZE)")
+                    help="simulated genome bases of the pipeline phase "
+                         "(pipeline-mesh takes at most MESH_SIZE, "
+                         "multiprocess at most MP_SIZE)")
     ap.add_argument("--coverage", type=int, default=30)
     ap.add_argument("--n-ins", type=int, default=10)
     ap.add_argument("--seed", type=int, default=3)
@@ -1231,9 +1345,6 @@ def main(argv=None):
                          "summary and no ok line")
     args = ap.parse_args(argv)
 
-    if not os.path.isdir(os.path.join(ROOT, "telr_tpu_torch")):
-        sys.exit("chip_smoke: telr_tpu_torch/ is not beside this script; "
-                 "run it from a checkout of the repository")
     import torch
     print(f"probe: python {sys.version.split()[0]}, torch {torch.__version__}"
           f", CUDA {torch.version.cuda}", flush=True)
@@ -1311,13 +1422,23 @@ def main(argv=None):
         done("mesh-identity")
     if "multiprocess" in phases:
         # two ranks share the host's cores: the same thread budget each
-        mp_launches = phase_multiprocess(args.size, args.coverage,
-                                         args.n_ins, args.seed,
+        mp_launches = phase_multiprocess(min(args.size, MP_SIZE),
+                                         args.coverage,
+                                         min(args.n_ins, MP_N_INS), args.seed,
                                          max(1, threads // 2))
         done("multiprocess")
     if "profile" in phases:
         phase_profile(device, args.coverage, args.n_ins, args.seed, threads)
         done("profile")
+    if "card-route" in phases:
+        route_launches = phase_card_route(device, threads)
+        done("card-route")
+    if "eval" in phases:
+        eval_rep = phase_eval(args.coverage, args.n_ins, args.seed, threads)
+        done("eval")
+    if "bench" in phases:
+        bench_rec = phase_bench()
+        done("bench")
 
     for mod in ("jax", "telr_tpu"):
         if mod in sys.modules:
@@ -1372,7 +1493,17 @@ def main(argv=None):
                 ms=bench[key + "_ms"], plain_ms=bench[key + "_plain_ms"],
                 bound_ms=bench[key + "_bound_ms"],
                 bound_by=bench[key + "_bound_by"], library_ms=None,
-                mp_launches_per_rank=[r[name] for r in mp_launches])
+                mp_launches_per_rank=[r[name] for r in mp_launches],
+                card_route_launches=route_launches[name],
+                eval_launches=eval_rep["launches"][name])
+            if name == "wavefront_dp":
+                # the score-only instance on the bench's path
+                entry.update(
+                    bench_scores_launches=bench_rec["launches"][
+                        "wavefront_dp_scores"],
+                    bench_scores_ms=bench_rec["ms_per_launch"],
+                    bench_scores_plain_ms=bench_rec["plain_ms"],
+                    bench_scores_bound_ms=bench_rec["bound_ms"])
         kernels.append(entry)
     # library_ms is null throughout: no single PyTorch call computes a
     # banded affine-gap DP or a traceback walk

@@ -48,7 +48,7 @@ def init_distributed(coordinator: Optional[str] = None,
     if backend == "nccl":
         raise NotImplementedError(
             "NCCL collectives are not ported: they need two or more cards "
-            "(ROADMAP, what remains, item 1: NCCL across >= 2 cards); use "
+            "(ROADMAP, queue 1, the item \"NCCL across >= 2 cards\"); use "
             "backend=\"gloo\"")
     if backend != "gloo":
         raise ValueError(f"unknown backend {backend!r}; the port runs its "

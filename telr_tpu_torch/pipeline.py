@@ -140,6 +140,7 @@ def _input_fingerprint(paths, config: TELRConfig) -> str:
 
 
 PROFILE_TRACE = "telr.trace.json.gz"
+STAGE_SPAN = "telr_stage:"
 
 
 def _start_profiler(device):
@@ -160,7 +161,10 @@ def _start_profiler(device):
     return prof
 
 
-def _stop_profiler(prof, profile_dir: str) -> None:
+def _stop_profiler(prof, profile_dir: str) -> Dict[str, float]:
+    """Stop the profiler and write its trace.  Returns each stage span's
+    seconds as the trace records them."""
+    import torch
     prof.stop()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, PROFILE_TRACE)
@@ -168,6 +172,10 @@ def _stop_profiler(prof, profile_dir: str) -> None:
     size = os.path.getsize(path)
     logger.info("profiler trace written to %s (%d bytes)", path, size)
     print(f"profiler trace: {path} ({size} bytes)")
+    cpu = torch.autograd.DeviceType.CPU
+    return {e.name()[len(STAGE_SPAN):]: e.duration_ns() / 1e9
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cpu and e.name().startswith(STAGE_SPAN)}
 
 
 @dataclasses.dataclass
@@ -255,7 +263,7 @@ def run_pipeline(
                     # which a stage of a millisecond would show
                     import torch
                     self._span = torch._C._profiler._RecordFunctionFast(
-                        f"telr_stage:{name}")
+                        STAGE_SPAN + name)
                     self._span.__enter__()
                 self.t0 = time.time()
                 return self
@@ -456,7 +464,9 @@ def run_pipeline(
             json.dump(lift_report, f, indent=4, sort_keys=False)
 
     if prof is not None:
-        _stop_profiler(prof, profile_dir)
+        # a profiled run's stage seconds are its spans' own: one pair of
+        # clock reads gives both, however briefly the stage ran
+        stage_seconds.update(_stop_profiler(prof, profile_dir))
 
     if not final:
         print("No non-reference TE insertion found")

@@ -32,7 +32,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import socket
@@ -49,34 +48,15 @@ N_INS, SEED = 10, 3
 
 
 def simulate(workdir, size, coverage, n_ins, seed):
-    """tools/genome_eval.py's dataset (one chromosome, chr2L), written with
-    the port's FASTA writer.  Returns the three paths (reads, reference,
-    library), the planted truth, the read count, the read bases and the
-    generator's score_calls."""
-    import numpy as np
-
-    from telr_tpu_torch.io.fasta import write_fasta
-    from telr_tpu_torch.io.seqs import Sequence, SeqDict
-    spec = importlib.util.spec_from_file_location(
-        "genome_eval", os.path.join(REPO, "tools", "genome_eval.py"))
-    ge = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ge)
-    rng = np.random.default_rng(seed)
-    library = ge.make_te_library(rng)
-    genome = ge.make_genome(size, library, rng)
-    truth = ge.plant_insertions(genome, library, n_ins, rng)
-    for t in truth:
-        t["chrom"] = "chr2L"
-    reads = ge.simulate_reads(genome, truth, coverage, rng)
-    paths = [os.path.join(workdir, f) for f in ("reads.fa", "ref.fa",
-                                                 "lib.fa")]
-    write_fasta(SeqDict([Sequence(f"r{k}", c)
-                         for k, (_n, c) in enumerate(reads)]), paths[0])
-    write_fasta(SeqDict([Sequence("chr2L", genome)]), paths[1])
-    write_fasta(SeqDict([Sequence(n, c) for n, c in library.items()]),
-                paths[2])
-    n_bases = sum(len(c) for _n, c in reads)
-    return paths, truth, len(reads), n_bases, ge.score_calls
+    """tools/genome_eval.py's dataset (one chromosome, chr2L) through
+    telr_tpu_torch/tools/genome_eval.py's simulate_dataset.  Returns the
+    three paths (reads, reference, library), the planted truth, the read
+    count, the read bases and the generators' score_calls."""
+    from telr_tpu_torch.tools.genome_eval import generators, simulate_dataset
+    ref, reads, lib, truth, n_reads, n_bases = simulate_dataset(
+        size, coverage, n_ins, seed, workdir)
+    return [reads, ref, lib], truth, n_reads, n_bases, \
+        generators().score_calls
 
 
 def worker(nprocs: int, pid: int, port: int, reads_fa: str, ref_fa: str,
@@ -97,18 +77,15 @@ def worker(nprocs: int, pid: int, port: int, reads_fa: str, ref_fa: str,
     from telr_tpu_torch.cli import _resolve_wavefront
     from telr_tpu_torch.config import SVConfig, TELRConfig
     from telr_tpu_torch.dist.runner import run_pipeline_multiprocess
-    from telr_tpu_torch.kernels import hopper_dp
-    from telr_tpu_torch.kernels import hopper_wavefront as hw
+    from telr_tpu_torch.tools.bench_pipeline import (kernel_launches,
+                                                     reset_launches)
     from telr_tpu_torch.utils.device import resolve
 
     dev = resolve("cpu" if device == "cpu" else None)
     use_wf, wf_stages = _resolve_wavefront("auto", device=dev.type)
     cfg = TELRConfig(sv=SVConfig(min_support=MIN_SUPPORT), threads=threads,
                      use_wavefront=use_wf, wavefront_stages=wf_stages)
-    kernels = (hw.wavefront_dp, hw.wavefront_walk, hopper_dp.rowband_dp,
-               hopper_dp.rowband_walk)
-    for k in kernels:
-        k.launches = 0
+    reset_launches()
     vote_many.device_calls.clear()
     if dev.type == "cuda":
         if dev.index is not None:
@@ -125,7 +102,7 @@ def worker(nprocs: int, pid: int, port: int, reads_fa: str, ref_fa: str,
         "stage_seconds": stage_s, "device": str(dev),
         "device_name": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
-        "launches": {k.__name__: k.launches for k in kernels},
+        "launches": kernel_launches(),
         "vote_calls": dict(vote_many.device_calls),
         "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else None),

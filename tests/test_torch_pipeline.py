@@ -8,16 +8,17 @@ row-banded runner, the locus all-to-all, the mesh depth reduction) is held the
 same way against the JAX package's run on its 8-device host mesh.  On the CPU
 the port's runner walks the DP rows in plain torch ops, about half a
 millisecond a row and shard whatever the batch, so that comparison runs on a
-smaller dataset of the same make (a 12 kb genome, one planted insertion,
-4 kb reads at 8x); the comparison itself is not cut."""
+smaller dataset of the same make (telr_tpu_torch.tools.bench_pipeline's
+small_dataset: a 12 kb genome, one planted insertion, 4 kb reads at 8x); the
+comparison itself is not cut."""
 
 import os
 
-import numpy as np
 import pytest
 import torch
 
 import bench_pipeline
+from telr_tpu_torch.tools.bench_pipeline import small_dataset
 
 OUTPUTS = [
     "reads.telr.json", "reads.telr.expanded.json", "reads.telr.vcf",
@@ -75,44 +76,6 @@ def test_run_finds_the_planted_insertions(runs):
     with open(os.path.join(port_out, "run_env.json")) as f:
         env = json.load(f)
     assert env["device"] == "cpu" and "torch" in env and "jax" not in env
-
-
-def small_dataset(outdir):
-    """bench_pipeline.synthetic_dataset's recipe at a tenth of the size: a
-    12 kb genome, one 1.2 kb insertion at 6 kb, 4 kb reads every 1 kb, twice
-    over, 4 % errors, every third read reverse-complemented."""
-    from telr_tpu_torch.io.fasta import write_fasta
-    from telr_tpu_torch.io.seqs import Sequence, revcomp_codes
-    rng = np.random.default_rng(11)
-    ref = rng.integers(0, 4, 12_000).astype(np.int8)
-    te = rng.integers(0, 4, 1_200).astype(np.int8)
-    pos = 6_000
-    hap = np.concatenate([ref[:pos], te, ref[pos:]])
-
-    def noisy(codes, err=0.04):
-        out = []
-        for c in codes:
-            r = rng.random()
-            if r < err / 3:
-                continue
-            if r < 2 * err / 3:
-                out.append(rng.integers(0, 4))
-            out.append(rng.integers(0, 4) if rng.random() < err / 3 else c)
-        return np.array(out, dtype=np.int8)
-
-    reads = []
-    for _rep in range(2):
-        for start in range(0, len(hap) - 4_000, 1_000):
-            seq = noisy(hap[start:start + 4_000])
-            if len(reads) % 3 == 2:
-                seq = revcomp_codes(seq)
-            reads.append(Sequence(f"read{len(reads)}", seq))
-    paths = [os.path.join(outdir, f) for f in ("reads.fa", "ref.fa",
-                                                 "lib.fa")]
-    write_fasta(reads, paths[0])
-    write_fasta([Sequence("chrS", ref)], paths[1])
-    write_fasta([Sequence("alpha", te)], paths[2])
-    return paths, [(pos, "alpha")]
 
 
 @pytest.fixture(scope="module")

@@ -8,7 +8,7 @@ import os
 
 import pytest
 
-from test_torch_pipeline import small_dataset
+from telr_tpu_torch.tools.bench_pipeline import small_dataset
 
 
 @pytest.fixture(scope="module")

@@ -85,8 +85,18 @@ MP_MODULES = ["telr_tpu_torch.dist.runner", "telr_tpu_torch.dist.regions",
               "telr_tpu_torch.tools.profile_report"]
 
 
+# the port's measurement and evaluation tools
+TOOL_MODULES = ["telr_tpu_torch.tools.genome_eval",
+                "telr_tpu_torch.tools.bench_pipeline",
+                "telr_tpu_torch.tools.bench",
+                "telr_tpu_torch.tools.stage1_bench",
+                "telr_tpu_torch.tools.profile_stage",
+                "telr_tpu_torch.tools.roofline"]
+
+
 def test_port_never_imports_jax():
     assert set(MP_MODULES) <= set(PORT_MODULES)
+    assert set(TOOL_MODULES) <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}:\n"
@@ -109,7 +119,7 @@ def test_port_never_imports_jax():
 @pytest.mark.parametrize("flag", [["--profile_dir", "trace"],
                                   ["--profile_dir", "trace",
                                    "--mesh_devices", "2"]])
-def test_unported_flags_raise(flag, tmp_path):
+def test_profile_dir_writes_the_trace(flag, tmp_path):
     """--profile_dir, with and without a mesh, writes the run's trace with
     its stage spans (on the CPU: --device cpu)."""
     from telr_tpu_torch import cli
@@ -185,7 +195,9 @@ def test_resolve_raises_without_a_card(monkeypatch):
                                    "wavefront_align", "vote_many",
                                    "banded_dp_batch", "banded_dp_scores",
                                    "run_pipeline_multiprocess",
-                                   "two_process_pipeline"])
+                                   "two_process_pipeline", "genome_eval",
+                                   "bench_pipeline", "bench",
+                                   "stage1_bench", "profile_stage"])
 def test_entry_points_do_not_fall_back_to_the_cpu(entry, monkeypatch,
                                                   tmp_path):
     """Without a card and without device="cpu" every entry point raises."""
@@ -221,6 +233,26 @@ def test_entry_points_do_not_fall_back_to_the_cpu(entry, monkeypatch,
         elif entry == "two_process_pipeline":
             from telr_tpu_torch.tools import two_process_pipeline
             two_process_pipeline.run([str(f)] * 3, str(tmp_path / "out"))
+        elif entry == "genome_eval":
+            from telr_tpu_torch.tools import genome_eval
+            genome_eval.main(["--size", "200000", "--workdir",
+                              str(tmp_path / "out")])
+        elif entry == "bench_pipeline":
+            from telr_tpu_torch.tools import bench_pipeline
+            bench_pipeline.main(["--synthetic", "--workdir",
+                                 str(tmp_path / "out")])
+        elif entry == "bench":
+            from telr_tpu_torch.tools import bench
+            bench.main(["--pairs", "1", "--lq", "64", "--lt", "64",
+                        "--width", "128"])
+        elif entry == "stage1_bench":
+            from telr_tpu_torch.tools import stage1_bench
+            stage1_bench.main(["--size", "200000", "--workdir",
+                               str(tmp_path / "out")])
+        elif entry == "profile_stage":
+            from telr_tpu_torch.tools import profile_stage
+            profile_stage.main(["--stage", "assembly", "--workdir",
+                                str(tmp_path / "out")])
         else:
             from telr_tpu_torch.kernels import dp
             getattr(dp, entry)(*dp_args, **dp_kw)
