@@ -12,7 +12,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                for bit, in all three DP modes.  The wavefront kernels at
                W = 128, 512 and 2048 (the W=2048 batch is bench.py's 64
                pairs of 2 kb x 3 kb), plus an EXTEND batch shaped like the
-               mapper's chunked rounds.  The row-banded DP at the shapes of
+               mapper's chunked rounds; then, in GLOBAL and EXTEND, a batch
+               of tail-stage region DPs (0.4-0.9 kb at W = 128) and that
+               EXTEND batch at the tail stages' score sets, LIB_TO_SEQ's
+               (2, 3, 5, 2) and ASM10's (1, 9, 16, 2).  The row-banded DP at
+               the shapes of
                the mesh path: bench.py's row-banded batch (64 pairs, 2048 x
                3072, W = 512), an extension round (256 pairs, 512 x 704 in
                the 1024 bucket, W = 512), a region batch (64 related pairs of
@@ -68,13 +72,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                device seconds and top kernels, the trace's size.  Fails
                unless alignment and assembly each show time in both
                wavefront kernels and no stage has more device time than wall;
- 10. card-route  the CLI on telr_tpu_torch/tools/bench_pipeline.py's
-               small_dataset with --wavefront_stages alignment,assembly and
-               the mappers' size gate at 0, with --device cuda and with
-               --device cpu (the kernels' plain versions, which the CPU tests
-               hold to the JAX package's files on the same route).  Fails
-               unless the nine files are byte-identical and both wavefront
-               kernels launched on the card;
+ 10. card-route  the CLI with the mappers' size gate at 0 on
+               telr_tpu_torch/tools/bench_pipeline.py's small_dataset with
+               --wavefront_stages alignment,assembly, and on its tail_dataset
+               (a reference copy of the inserted family) with --wavefront on,
+               each with --device cuda and with --device cpu (the kernels'
+               plain versions, which the CPU tests hold to the JAX package's
+               files on the same routes; the CPU runs in processes of their
+               own beside the card runs).  Prints the tail run's launches by
+               stage.  Fails unless each pair's nine files are
+               byte-identical, both wavefront kernels launched on the card
+               and, on tail_dataset, in each of the five tail stages;
  11. eval      telr_tpu_torch/tools/genome_eval.py's run_eval on the card,
                auto routing: 1 Mb in two chromosomes, ONT-like reads and the
                ONT preset, the pipeline phases' coverage, insertions and
@@ -217,6 +225,30 @@ def extend_round_case(seed=1):
     return ("extend_round128", 128, pairs, None)
 
 
+def tail_cases(seed=4):
+    """Batches shaped like the tail stages' dispatches: region DPs of
+    insertion sequences, library consensi and liftover flanks (0.4-0.9 kb,
+    so that a pair's steps fit the 2048 rung) at W=128, and the chunked
+    EXTEND round."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for _ in range(64):
+        lq = int(rng.integers(400, 900))
+        pairs.append(_related(rng, lq, lq + 100, lq // 10,
+                              indel=int(rng.integers(0, 30))))
+    return [("tail_region128", 128, pairs, None), extend_round_case()]
+
+
+def tail_score_sets():
+    """The score sets the tail stages give the wavefront kernels besides the
+    reads' (2, 4, 4, 2): the library's (LIB_TO_SEQ: te_filter, the family
+    re-annotation, ref_repeatmask) and ASM10's (liftover)."""
+    from telr_tpu_torch.config import ASM10, LIB_TO_SEQ
+    from telr_tpu_torch.kernels.dp import DPParams
+    return {p.name: DPParams(p.match, p.mismatch, p.gap_open, p.gap_extend)
+            for p in (LIB_TO_SEQ, ASM10)}
+
+
 def _timed(fn, reps, device):
     """Mean milliseconds of fn() over reps runs on the card (CUDA events,
     after two warm-up runs: the loop holds one result while the next is
@@ -252,14 +284,16 @@ def _max_err(pairs_of_tensors, rows=None):
     return err
 
 
-def check_case(name, width, mode, pairs, guides, device, reps=3):
-    """One batch through both kernels and both plain versions on `device`;
-    raises on any difference.  Returns the per-kernel timings and errors."""
+def check_case(name, width, mode, pairs, guides, device, reps=3,
+               params=None):
+    """One batch through both kernels and both plain versions on `device`,
+    at the score set `params` (default DPParams(), the reads'); raises on
+    any difference.  Returns the per-kernel timings and errors."""
     import torch
     from telr_tpu_torch.kernels import cuda_lib
     from telr_tpu_torch.kernels import hopper_wavefront as hw
     from telr_tpu_torch.kernels.dp import DPParams
-    params = DPParams()
+    params = params or DPParams()
     meta, init, scal = hw.prepare_wavefront_batch(pairs, width, guides)
     n = len(pairs)
     meta, init, scal = (torch.from_numpy(x).to(device)
@@ -314,7 +348,8 @@ def check_case(name, width, mode, pairs, guides, device, reps=3):
     dp_bound = bounds(wire + cells + 16 * n, WAVEFRONT_OPS[True] * cells)
     sc_bound = bounds(wire + 8 * n, WAVEFRONT_OPS[False] * cells)
     return {"case": name, "width": width, "mode": mode, "pairs": n,
-            "S_pad": S_pad, "cells": cells,
+            "params": list(params.tuple()[:4]), "S_pad": S_pad,
+            "cells": cells,
             "lanes": cuda_lib.pick_cells(
                 width, n, cuda_lib.cell_options("wavefront_dp", width)),
             "dp_bound_ms": dp_bound[0], "dp_bound_by": dp_bound[1],
@@ -375,6 +410,12 @@ def phase_parity(device):
                                       device))
     name, width, pairs, guides = extend_round_case()
     results.append(check_case(name, width, EXTEND, pairs, guides, device))
+    # the tail stages' score sets, in the modes the mapper launches
+    for params in tail_score_sets().values():
+        for name, width, pairs, guides in tail_cases():
+            for mode in (GLOBAL, EXTEND):
+                results.append(check_case(name, width, mode, pairs, guides,
+                                          device, params=params))
     return results
 
 
@@ -920,6 +961,14 @@ def phase_dist(device):
     return score_launches
 
 
+def cli_argv(inputs, out, threads, coverage, extra=(), cli_device="cuda"):
+    reads, ref, lib = inputs
+    return ["-i", reads, "-r", ref, "-l", lib, "-o", out, "-t", str(threads),
+            "--device", cli_device,
+            # tools/genome_eval.py's setting: max(3, coverage // 8)
+            "--min_support", str(max(3, coverage // 8))] + list(extra)
+
+
 def run_cli(device, inputs, out, threads, coverage, extra=(),
             cli_device="cuda"):
     """One run of the port's CLI (--device cli_device) with every launch
@@ -935,11 +984,7 @@ def run_cli(device, inputs, out, threads, coverage, extra=(),
     from telr_tpu_torch.kernels import hopper_dp
     from telr_tpu_torch.kernels import hopper_wavefront as hw
     from telr_tpu_torch.utils import hoststats
-    reads, ref, lib = inputs
-    argv = ["-i", reads, "-r", ref, "-l", lib, "-o", out, "-t", str(threads),
-            "--device", cli_device,
-            # tools/genome_eval.py's setting: max(3, coverage // 8)
-            "--min_support", str(max(3, coverage // 8))] + list(extra)
+    argv = cli_argv(inputs, out, threads, coverage, extra, cli_device)
     # the runner of the one-card mesh the CLI builds (one per equal mesh)
     runner = sharded_dp_runner(make_mesh(1, device="cuda"))
     # run_pipeline's logging.basicConfig opens this run's TELR.log only when
@@ -1208,60 +1253,125 @@ def phase_profile(device, coverage, n_ins, seed, threads, size=300_000):
                                  f"> wall {row['wall_s']} s")
 
 
-def phase_card_route(device, threads):
+# one --device cpu run of the CLI (its arguments after -c) with the mappers'
+# size gate at 0, in a process of its own; prints its wall seconds, the
+# kernels' CUDA launches and the vote's calls as one JSON line
+CPU_ROUTE_RUN = (
+    "import json, sys, time\n"
+    "import torch\n"
+    "from telr_tpu_torch import cli\n"
+    "from telr_tpu_torch.assembly.device_vote import vote_many\n"
+    "from telr_tpu_torch.kernels import mapper\n"
+    "from telr_tpu_torch.tools.bench_pipeline import kernel_launches\n"
+    "mapper._WAVE_MIN_CELLS = 0\n"
+    "torch.set_num_threads(1)\n"   # the plain versions are many small ops
+    "t0 = time.perf_counter()\n"
+    "cli.main(sys.argv[1:])\n"
+    "print(json.dumps({'wall': time.perf_counter() - t0,\n"
+    "                  'launches': kernel_launches(),\n"
+    "                  'votes': vote_many.device_calls}))\n")
+# the tail stages as the pipeline names them
+TAIL_STAGES = ("te_filter", "annotate_contig", "allele_frequency",
+               "ref_repeatmask", "liftover")
+
+
+def phase_card_route(device, threads, timeout_s=900):
     """The card route against the route the CPU tests hold to the JAX
-    package: the CLI on small_dataset (telr_tpu_torch/tools/bench_pipeline.py:
-    a 12 kb genome, one insertion, 4 kb reads at 8x) with
-    --wavefront_stages alignment,assembly, once with --device cuda (the
-    kernels) and once with --device cpu (their plain versions), the mappers'
-    size gate set to 0 for the phase so the small batches reach the kernels.
-    Fails unless the nine files are byte-identical and both wavefront kernels
-    launched on the card.  Returns the card run's launches."""
-    import torch
+    package, the mappers' size gate at 0 so that the small batches reach the
+    kernels, on two run pairs: the CLI on small_dataset
+    (telr_tpu_torch/tools/bench_pipeline.py: a 12 kb genome, one insertion,
+    4 kb reads at 8x) with --wavefront_stages alignment,assembly, and on
+    tail_dataset (the same make with a reference copy of the inserted
+    family) with --wavefront on, all seven stages.  Each pair runs once with
+    --device cuda (the kernels) and once with --device cpu (their plain
+    versions); the CPU runs go in processes of their own, both started
+    before the card runs, since they take most of the phase.  Fails unless
+    each pair's nine files are byte-identical, both wavefront kernels
+    launched on the card and none in the CPU runs, and, on tail_dataset,
+    both launched in each of the five tail stages.  Returns the card runs'
+    launches and the tail run's by stage."""
     from telr_tpu_torch.kernels import mapper
-    from telr_tpu_torch.tools.bench_pipeline import small_dataset
-    extra = ["--wavefront_stages", "alignment,assembly"]
+    from telr_tpu_torch.tools.bench_pipeline import (small_dataset,
+                                                     stage_record,
+                                                     tail_dataset)
+    pairs = {"small": (small_dataset,
+                       ["--wavefront_stages", "alignment,assembly"]),
+             "tail": (tail_dataset, ["--wavefront", "on"])}
     gate = mapper._WAVE_MIN_CELLS
-    n_threads = torch.get_num_threads()
-    mapper._WAVE_MIN_CELLS = 0
-    try:
-        with tempfile.TemporaryDirectory(prefix="telr_smoke_") as work:
-            inputs, _truth = small_dataset(work)
-            outs, seen = {}, {}
-            for name in ("cuda", "cpu"):
-                outs[name] = os.path.join(work, name)
-                # the plain versions are many small ops: intra-op threads
-                # only contend there
-                torch.set_num_threads(1 if name == "cpu" else n_threads)
-                _res, launches, _s, votes, _d, wall, _p = run_cli(
-                    device, inputs, outs[name], threads, 8, extra,
-                    cli_device=name)
-                seen[name] = (launches, votes, wall)
-            same = []
-            for f in RUN_FILES:
-                with open(os.path.join(outs["cuda"], f), "rb") as a, \
-                        open(os.path.join(outs["cpu"], f), "rb") as b:
-                    same.append(a.read() == b.read())
-    finally:
-        mapper._WAVE_MIN_CELLS = gate
-        torch.set_num_threads(n_threads)
-    (lc, vc, wc), (lp, vp, wp) = seen["cuda"], seen["cpu"]
-    print(f"card-route: small_dataset, stages alignment,assembly, gate 0: "
-          f"--device cuda {wc:.1f} s, launches wavefront_dp "
-          f"{lc['wavefront_dp']} wavefront_walk {lc['wavefront_walk']}, "
-          f"vote calls {json.dumps(vc)}; --device cpu {wp:.1f} s, launches "
-          f"{lp['wavefront_dp']} / {lp['wavefront_walk']}, vote calls "
-          f"{json.dumps(vp)}; {sum(same)} of {len(RUN_FILES)} files "
-          "byte-identical", flush=True)
-    differ = [f for f, ok in zip(RUN_FILES, same) if not ok]
-    if differ:
-        raise AssertionError(f"card and CPU routes differ in {differ}")
-    for k in ("wavefront_dp", "wavefront_walk"):
-        if lc[k] == 0:
-            raise AssertionError(f"the card run never launched {k}")
-        if lp[k] != 0:
-            raise AssertionError(f"the CPU run launched {k} on the card")
-    return lc
+    seen, by_stage, same = {}, {}, {}
+    procs = {}
+    with tempfile.TemporaryDirectory(prefix="telr_smoke_") as work:
+        try:
+            inputs = {}
+            for key, (dataset, extra) in pairs.items():
+                os.makedirs(os.path.join(work, key))
+                inputs[key], _truth = dataset(os.path.join(work, key))
+                procs[key] = subprocess.Popen(
+                    [sys.executable, "-c", CPU_ROUTE_RUN] + cli_argv(
+                        inputs[key], os.path.join(work, key, "cpu"), threads,
+                        8, extra, cli_device="cpu"),
+                    cwd=os.path.dirname(os.path.abspath(__file__)),
+                    stdout=subprocess.PIPE, text=True)
+            mapper._WAVE_MIN_CELLS = 0
+            for key, (_dataset, extra) in pairs.items():
+                with stage_record() as rec:
+                    _res, launches, _s, votes, _d, wall, _p = run_cli(
+                        device, inputs[key], os.path.join(work, key, "cuda"),
+                        threads, 8, extra)
+                seen[key] = {"cuda": (launches, votes, wall)}
+                by_stage[key] = {st: r["launches"] for st, r in rec.items()}
+            for key, proc in procs.items():
+                out, _err = proc.communicate(timeout=timeout_s)
+                if proc.returncode:
+                    raise AssertionError(f"card-route: the {key} --device "
+                                         f"cpu run exited {proc.returncode}")
+                run = json.loads(out.strip().splitlines()[-1])
+                seen[key]["cpu"] = (run["launches"], run["votes"],
+                                    run["wall"])
+                same[key] = []
+                for f in RUN_FILES:
+                    with open(os.path.join(work, key, "cuda", f), "rb") as a, \
+                            open(os.path.join(work, key, "cpu", f), "rb") as b:
+                        same[key].append(a.read() == b.read())
+        finally:
+            mapper._WAVE_MIN_CELLS = gate
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    for key, (_dataset, extra) in pairs.items():
+        (lc, vc, wc), (lp, vp, wp) = seen[key]["cuda"], seen[key]["cpu"]
+        print(f"card-route: {key}_dataset, {' '.join(extra)}, gate 0: "
+              f"--device cuda {wc:.1f} s, launches wavefront_dp "
+              f"{lc['wavefront_dp']} wavefront_walk {lc['wavefront_walk']}, "
+              f"vote calls {json.dumps(vc)}; --device cpu {wp:.1f} s, "
+              f"launches {lp['wavefront_dp']} / {lp['wavefront_walk']}, vote "
+              f"calls {json.dumps(vp)}; {sum(same[key])} of {len(RUN_FILES)} "
+              "files byte-identical", flush=True)
+        print(f"card-route: {key}_dataset, --device cuda launches by stage "
+              "(wavefront_dp / wavefront_walk): " + ", ".join(
+                  f"{st} {n['wavefront_dp']} / {n['wavefront_walk']}"
+                  for st, n in by_stage[key].items()
+                  if n["wavefront_dp"] or n["wavefront_walk"]), flush=True)
+        differ = [f for f, ok in zip(RUN_FILES, same[key]) if not ok]
+        if differ:
+            raise AssertionError(f"{key}_dataset: card and CPU routes differ "
+                                 f"in {differ}")
+        for k in ("wavefront_dp", "wavefront_walk"):
+            if lc[k] == 0:
+                raise AssertionError(f"{key}_dataset: the card run never "
+                                     f"launched {k}")
+            if lp[k] != 0:
+                raise AssertionError(f"{key}_dataset: the CPU run launched "
+                                     f"{k} on the card")
+    for st in TAIL_STAGES:
+        for k in ("wavefront_dp", "wavefront_walk"):
+            if by_stage["tail"].get(st, {}).get(k, 0) == 0:
+                raise AssertionError(f"tail_dataset: {st} never launched {k} "
+                                     "on the card")
+    return {"small": seen["small"]["cuda"][0],
+            "tail": seen["tail"]["cuda"][0],
+            "tail_by_stage": {st: by_stage["tail"][st] for st in TAIL_STAGES}}
 
 
 def phase_eval(coverage, n_ins, seed, threads, size=1_000_000):
@@ -1494,7 +1604,11 @@ def main(argv=None):
                 bound_ms=bench[key + "_bound_ms"],
                 bound_by=bench[key + "_bound_by"], library_ms=None,
                 mp_launches_per_rank=[r[name] for r in mp_launches],
-                card_route_launches=route_launches[name],
+                card_route_launches=route_launches["small"][name],
+                tail_route_launches=route_launches["tail"][name],
+                tail_route_launches_by_stage={
+                    st: n[name] for st, n in
+                    route_launches["tail_by_stage"].items()},
                 eval_launches=eval_rep["launches"][name])
             if name == "wavefront_dp":
                 # the score-only instance on the bench's path

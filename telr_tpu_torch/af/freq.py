@@ -35,6 +35,7 @@ def _realign_stores_batched(
     reads: SeqDict,
     preset: AlignPreset,
     use_wavefront: bool = False,
+    device=None,
 ) -> List[AlignmentStore]:
     """Realign each target's read window in ONE pooled dispatch across all
     (locus x strand) targets — the batched replacement for the reference's
@@ -43,7 +44,7 @@ def _realign_stores_batched(
     groups = []
     for contig, read_names in zip(targets, read_name_lists):
         aligner = Aligner(SeqDict([contig]), preset,
-                          use_wavefront=use_wavefront)
+                          use_wavefront=use_wavefront, device=device)
         groups.append((aligner, {rn: reads[rn].codes for rn in read_names
                                  if rn in reads}))
     results = map_batch_grouped(groups)
@@ -122,6 +123,7 @@ def estimate_af(
     use_wavefront: bool = False,
     mesh=None,
     window_names: Optional[Dict[str, List[str]]] = None,
+    device=None,
 ) -> Dict[str, dict]:
     """Returns te_freq: contig_name -> {te_5p_cov, ..., freq} exactly as the
     reference builds it (TELR_te.py:758-838).
@@ -171,7 +173,8 @@ def estimate_af(
 
     stores = _realign_stores_batched(targets, read_lists, reads,
                                      read_preset,
-                                     use_wavefront=use_wavefront)
+                                     use_wavefront=use_wavefront,
+                                     device=device)
     if mesh is not None:
         # depth reductions through the mesh: full-contig M-base coverage is
         # psum-reduced over the "reads" axis (CIGAR-true, bit-identical to

@@ -41,6 +41,7 @@ def annotate_contigs(
     cfg: AnnotateConfig,
     loci_eval: LociEval,
     use_wavefront: bool = False,
+    device=None,
 ) -> Tuple[Intervals, SeqDict]:
     """Returns (contig TE annotation intervals with family/strand cols,
     TE sequences named 'contig:start-end').
@@ -65,7 +66,7 @@ def annotate_contigs(
     groups1 = []
     for locus in step1_loci:
         aligner = Aligner(SeqDict([contigs[locus]]), ins_preset,
-                          use_wavefront=use_wavefront)
+                          use_wavefront=use_wavefront, device=device)
         groups1.append((aligner,
                         {locus: encode(rec_by_locus[locus].seq)}))
     seq2contig_rows = []
@@ -87,7 +88,7 @@ def annotate_contigs(
     groups2 = []
     for locus in step2_loci:
         aligner = Aligner(SeqDict([contigs[locus]]), read_preset,
-                          use_wavefront=use_wavefront)
+                          use_wavefront=use_wavefront, device=device)
         groups2.append((aligner, {s.name: s.codes for s in library}))
     te2contig_rows = []
     for locus, result in zip(step2_loci, map_batch_grouped(groups2)):
@@ -174,12 +175,14 @@ def reannotate_families(
     library: SeqDict,
     preset: AlignPreset = LIB_TO_SEQ,
     use_wavefront: bool = False,
+    device=None,
 ) -> Intervals:
     """RepeatMasker-style family re-annotation of the contig TE sequences
     (reference TELR_te.py:267-370): align each extracted TE sequence against
     the library and replace the family label with the distinct '|'-joined
     labels of the hits, dropping annotations with no hit."""
-    aligner = Aligner(library, preset, use_wavefront=use_wavefront)
+    aligner = Aligner(library, preset, use_wavefront=use_wavefront,
+                      device=device)
     results = aligner.map_batch({s.name: s.codes for s in te_seqs})
     fam_by_contig: Dict[str, str] = {}
     for s in te_seqs:

@@ -33,6 +33,7 @@ def repeatmask_reference(
     use_wavefront: bool = False,
     shard=None,
     allgather=None,
+    device=None,
 ) -> Intervals:
     """Annotate all library-homologous intervals on the reference; the whole
     library is searched in one batched dispatch.
@@ -51,7 +52,7 @@ def repeatmask_reference(
     if preset is None:
         preset = dataclasses.replace(LIB_TO_SEQ, max_secondary=max_copies)
     aligner = Aligner(reference, preset, max_occ=4096,
-                      use_wavefront=use_wavefront)
+                      use_wavefront=use_wavefront, device=device)
     queries = {s.name: s.codes for s in library}
     if shard is not None:
         from telr_tpu_torch.kernels.mapper import map_batch_grouped

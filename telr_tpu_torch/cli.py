@@ -105,10 +105,10 @@ def get_args(argv=None):
     return args
 
 
-# The stages whose DP batches are large enough to win on the device: stage-1
-# mapping and the assembly polish realignments.  annotate/repeatmask
-# dispatch many tiny batches, so "auto" keeps those on the native host
-# engine (the same routing as telr_tpu's).
+# The stages "auto" routes to the device: stage-1 mapping and the assembly
+# polish realignments, the same routing as telr_tpu's.  The other stages
+# stay on the native host engine under auto, though on an H100 at 10 Mb
+# each ran faster on the kernels (PERF.md section 5; ROADMAP queue 1).
 AUTO_WAVEFRONT_STAGES = ("alignment", "assembly")
 
 

@@ -212,7 +212,8 @@ def run_pipeline_multiprocess(
                 if regions.region_of(r.chrom, r.start) == pid]
         mine = filter_te_candidates(
             mine, library, loci_eval,
-            use_wavefront=config.wavefront_for("te_filter"))
+            use_wavefront=config.wavefront_for("te_filter"),
+            device=device)
         records = [r for part in _allgather_obj(mine) for r in part]
         records.sort(key=lambda r: int(r.sv_id))
         records = merge_nearby_records(records, config.sv.merge_window)
@@ -305,18 +306,19 @@ def run_pipeline_multiprocess(
         contig_te, te_seqs = annotate_contigs(
             contigs, passed, library, own_recs, config.read_preset,
             config.annotate, loci_eval,
-            use_wavefront=config.wavefront_for("annotate"))
+            use_wavefront=config.wavefront_for("annotate"), device=device)
         if not config.minimap2_family:
             contig_te = reannotate_families(
                 contig_te, te_seqs, library,
-                use_wavefront=config.wavefront_for("annotate"))
+                use_wavefront=config.wavefront_for("annotate"),
+                device=device)
 
     with timed("allele_frequency"):
         te_freq = estimate_af(own_recs, contigs, contig_te, shard_reads,
                               store, config.read_preset, config.af,
                               config.assembly,
                               use_wavefront=config.wavefront_for("af"),
-                              window_names=window_names)
+                              window_names=window_names, device=device)
 
     with timed("ref_repeatmask"):
         # chain-job-sharded reference repeatmask: family sharding was
@@ -328,7 +330,7 @@ def run_pipeline_multiprocess(
         ref_te = repeatmask_reference(
             reference, library,
             use_wavefront=config.wavefront_for("repeatmask"),
-            shard=(pid, P), allgather=_allgather_obj)
+            shard=(pid, P), allgather=_allgather_obj, device=device)
         ref_rows = [ref_te.row(i) for i in range(len(ref_te))]
 
     with timed("gather_results"):
@@ -397,7 +399,8 @@ def run_pipeline_multiprocess(
             contigs, reference, contig_te, ref_te_bed, config.liftover,
             different_contig_name=config.different_contig_name,
             telr_mode=True,
-            use_wavefront=config.wavefront_for("liftover"))
+            use_wavefront=config.wavefront_for("liftover"),
+            device=device)
         for item in lift_report:
             info = item.get("report")
             if not info or info.get("type") != "non-reference":

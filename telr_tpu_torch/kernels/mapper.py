@@ -63,9 +63,9 @@ class Aligner:
     """Index a target SeqDict once; map many queries.
 
     use_wavefront=True routes the chain-region and extension DPs through the
-    wavefront kernels (kernels/hopper_wavefront.py) on `device` (None: the
-    CUDA card when there is one, else the CPU with the kernels' plain
-    versions).  The default path is the native host engine (dp.align_pairs);
+    wavefront kernels (kernels/hopper_wavefront.py) on `device` ("cpu": the
+    kernels' plain versions; None: the first CUDA card, raising when there
+    is none).  The default path is the native host engine (dp.align_pairs);
     both produce oracle-optimal alignments."""
 
     def __init__(self, targets: SeqDict, preset: AlignPreset,
@@ -428,9 +428,12 @@ _EXT_DIRECT_MAX = 768  # extensions at most this long skip the chunking
 
 # grouped-dispatch calls whose total wavefront work is below this many DP
 # cells run on the native host engine instead (hybrid dispatch; see
-# _wave_goes_to_host).  The value is the JAX package's; the cutoff measured
-# on the H100 is still open (ROADMAP).
-_WAVE_MIN_CELLS = 256_000_000
+# _wave_goes_to_host).  The crossover that tools/gate_sweep.py measured on
+# an NVIDIA H100 80GB HBM3 (700 W) with the host engine at 8 threads: one
+# dispatch of 9.3M cells took 17 ms on the card's route against 18-19 ms on
+# the host, at 5.3M 15 ms against 11 ms, at the reads' and the library's
+# score sets alike (PERF.md).
+_WAVE_MIN_CELLS = 9_300_000
 
 
 def _run_ext_round_cpu(jobs, runner=None):
@@ -517,6 +520,15 @@ def _extend_chunked(ext_items, run_round):
             for s in state]
 
 
+def _wave_width(width) -> int:
+    """The wavefront band of a piece planned at row-band `width` (None: an
+    extension): half of it, quantized to {128, 512, 2048}.  Every distinct
+    width is a separate dispatch pool (chunking amortizes per pool); a wider
+    band only adds reachable cells, never changes optimal alignments."""
+    wave_w = max(128, (width or 256) // 2)
+    return 128 if wave_w <= 128 else 512 if wave_w <= 512 else 2048
+
+
 def _wave_cells(wave_buckets, wave_ext_items) -> int:
     """Estimated DP cells of a grouped dispatch's wavefront work: S x W per
     piece, and one chunk-round rectangle per query base of a chunked
@@ -533,9 +545,8 @@ def _wave_cells(wave_buckets, wave_ext_items) -> int:
 def _wave_goes_to_host(wave_buckets, wave_ext_items) -> bool:
     """Hybrid dispatch: a grouped dispatch whose wavefront work is below
     _WAVE_MIN_CELLS runs on the native host engine, where it costs less
-    than a round of device launches and copies.  Decided per call:
-    stage-1 and assembly dispatches are orders of magnitude above the
-    cutoff, the tail stages' handfuls of small DPs far below it."""
+    than a round of device launches and copies.  Decided per call, from
+    the call's own size."""
     return bool(wave_buckets or wave_ext_items) and \
         _wave_cells(wave_buckets, wave_ext_items) < _WAVE_MIN_CELLS
 
@@ -568,13 +579,7 @@ def _dispatch_pieces(groups, jobs, piece_results, job_ids=None):
                     wave_ext_slots.append((ji, tag))
                     wave_ext_device = al.device
                     continue
-                wave_w = max(128, (width or 256) // 2)
-                # quantize to {128, 512, 2048}: every distinct width is a
-                # separate dispatch pool (chunking amortizes per pool); a
-                # wider band only adds reachable cells, never changes
-                # optimal alignments
-                wave_w = 128 if wave_w <= 128 else \
-                    512 if wave_w <= 512 else 2048
+                wave_w = _wave_width(width)
                 if len(q) == 0 or len(t) == 0:
                     piece_results[ji][tag] = dp.align_pair(q, t, mode,
                                                            params)

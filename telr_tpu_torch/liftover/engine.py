@@ -469,9 +469,11 @@ def liftover(
     different_contig_name: bool = False,
     telr_mode: bool = True,
     use_wavefront: bool = False,
+    device=None,
 ) -> Tuple[List[dict], Intervals, dict]:
     """Returns (liftover report list, non-reference BED intervals, summary)."""
-    ref_aligner = Aligner(reference, preset, use_wavefront=use_wavefront)
+    ref_aligner = Aligner(reference, preset, use_wavefront=use_wavefront,
+                          device=device)
     # prefetch all flank->reference alignments in ONE batched dispatch
     # (replaces the reference's per-annotation Pool fan-out,
     # TELR_liftover.py:1049-1054)

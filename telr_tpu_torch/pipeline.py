@@ -339,7 +339,8 @@ def run_pipeline(
         else:
             records = filter_te_candidates(
                 records, library, loci_eval,
-                use_wavefront=config.wavefront_for("te_filter"))
+                use_wavefront=config.wavefront_for("te_filter"),
+                device=device)
             records = merge_nearby_records(records, config.sv.merge_window)
             ckpt.save_records("te_filter", records)
 
@@ -385,17 +386,18 @@ def run_pipeline(
         contig_te, te_seqs = annotate_contigs(
             contigs, passed, library, records, config.read_preset,
             config.annotate, loci_eval,
-            use_wavefront=config.wavefront_for("annotate"))
+            use_wavefront=config.wavefront_for("annotate"), device=device)
         if not config.minimap2_family:
             contig_te = reannotate_families(
                 contig_te, te_seqs, library,
-                use_wavefront=config.wavefront_for("annotate"))
+                use_wavefront=config.wavefront_for("annotate"),
+                device=device)
 
     with timed("allele_frequency"):
         te_freq = estimate_af(records, contigs, contig_te, reads, store,
                               config.read_preset, config.af, config.assembly,
                               use_wavefront=config.wavefront_for("af"),
-                              mesh=mesh)
+                              mesh=mesh, device=device)
 
     with timed("ref_repeatmask"):
         # checkpointed: depends only on (reference, library), and the
@@ -407,7 +409,8 @@ def run_pipeline(
         else:
             ref_te_bed = repeatmask_reference(
                 reference, library,
-                use_wavefront=config.wavefront_for("repeatmask"))
+                use_wavefront=config.wavefront_for("repeatmask"),
+                device=device)
             ckpt.save_intervals("ref_repeatmask", ref_te_bed)
         if len(ref_te_bed) == 0:
             ref_te_bed = None
@@ -417,7 +420,8 @@ def run_pipeline(
             contigs, reference, contig_te, ref_te_bed, config.liftover,
             different_contig_name=config.different_contig_name,
             telr_mode=True,
-            use_wavefront=config.wavefront_for("liftover"))
+            use_wavefront=config.wavefront_for("liftover"),
+            device=device)
         # component-retry entries (liftover/engine.py) carry sub-interval
         # coords the annotate stage never extracted; slice their TE
         # sequences now so the output stage can look them up

@@ -48,6 +48,7 @@ def filter_te_candidates(
     loci_eval: LociEval,
     preset: AlignPreset = LIB_TO_SEQ,
     use_wavefront: bool = False,
+    device=None,
 ) -> List[SVRecord]:
     """Keep records whose INS sequence repeat-masks against the library.
 
@@ -55,7 +56,8 @@ def filter_te_candidates(
     round(length/seq_len, 2), summed (TELR_sv.py:298-308).  All INS
     sequences are homology-searched in one batched dispatch.
     """
-    aligner = Aligner(library, preset, use_wavefront=use_wavefront)
+    aligner = Aligner(library, preset, use_wavefront=use_wavefront,
+                      device=device)
     results = aligner.map_batch(
         {rec.locus_name: encode(rec.seq) for rec in records})
     kept: List[SVRecord] = []

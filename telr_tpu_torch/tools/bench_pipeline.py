@@ -16,8 +16,11 @@ kernel's launches and the peak device memory.  Stage routing is the CLI's
 TELR test data is not part of the repository.
 
 Also the home of the small datasets the port's tests and chip_smoke.py's
-card-route phase run: `small_dataset` (a 12 kb genome, one insertion) and
-`tiny_dataset` (the same recipe at 6 kb).
+card-route phase run: `small_dataset` (a 12 kb genome, one insertion),
+`tiny_dataset` (the same recipe at 6 kb) and `tail_dataset` (12 kb with a
+reference TE copy, so that every tail stage has a DP to run); and of
+`stage_record`, which attributes the kernels' launches and the mapper's
+grouped dispatches to the pipeline stage that made them.
 
 Usage:
     python -m telr_tpu_torch.tools.bench_pipeline --synthetic
@@ -28,7 +31,9 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import logging
 import os
 import sys
 import tempfile
@@ -49,6 +54,20 @@ def _noisy(rng, codes, err=0.04):
             out.append(rng.integers(0, 4))
         out.append(rng.integers(0, 4) if rng.random() < err / 3 else c)
     return np.array(out, dtype=np.int8)
+
+
+def _sample_reads(rng, hap, read_len, step, reads):
+    """Reads of `hap` starting every `step` bases, twice over, through
+    _noisy, every third (counting those already in `reads`)
+    reverse-complemented; appended to `reads` (the loop every dataset recipe
+    shares)."""
+    from telr_tpu_torch.io.seqs import Sequence, revcomp_codes
+    for _rep in range(2):
+        for start in range(0, len(hap) - read_len, step):
+            seq = _noisy(rng, hap[start:start + read_len])
+            if len(reads) % 3 == 2:
+                seq = revcomp_codes(seq)
+            reads.append(Sequence(f"read{len(reads)}", seq))
 
 
 def synthetic_dataset(outdir: str):
@@ -73,13 +92,7 @@ def synthetic_dataset(outdir: str):
     hap = np.concatenate(parts)
 
     reads = []
-    readlen = 12_000
-    for _rep in range(2):
-        for start in range(0, len(hap) - readlen, 3_000):
-            seq = _noisy(rng, hap[start:start + readlen])
-            if len(reads) % 3 == 2:
-                seq = revcomp_codes(seq)
-            reads.append(Sequence(f"read{len(reads)}", seq))
+    _sample_reads(rng, hap, 12_000, 3_000, reads)
     write_fasta([Sequence("chrS", ref)], os.path.join(outdir, "ref.fa"))
     write_fasta(reads, os.path.join(outdir, "reads.fa"))
     write_fasta([Sequence("alpha", te1), Sequence("beta", te2)],
@@ -98,7 +111,7 @@ def small_dataset(outdir: str, genome: int = 12_000, te_len: int = 1_200,
     insertion of the same TE each.  Returns ((reads, ref, lib), truth) with
     truth [(pos, family)] (one chromosome) or [(chrom, pos, family)]."""
     from telr_tpu_torch.io.fasta import write_fasta
-    from telr_tpu_torch.io.seqs import Sequence, revcomp_codes
+    from telr_tpu_torch.io.seqs import Sequence
     rng = np.random.default_rng(11)
     names = ["chrS"] if chroms == 1 else [f"chr{k + 1}" for k in
                                            range(chroms)]
@@ -108,12 +121,7 @@ def small_dataset(outdir: str, genome: int = 12_000, te_len: int = 1_200,
     reads, truth = [], []
     for name, ref in zip(names, refs):
         hap = np.concatenate([ref[:pos], te, ref[pos:]])
-        for _rep in range(2):
-            for start in range(0, len(hap) - read_len, step):
-                seq = _noisy(rng, hap[start:start + read_len])
-                if len(reads) % 3 == 2:
-                    seq = revcomp_codes(seq)
-                reads.append(Sequence(f"read{len(reads)}", seq))
+        _sample_reads(rng, hap, read_len, step, reads)
         truth.append((name, pos, "alpha") if chroms > 1 else (pos, "alpha"))
     paths = [os.path.join(outdir, f) for f in ("reads.fa", "ref.fa",
                                                  "lib.fa")]
@@ -129,6 +137,38 @@ def tiny_dataset(outdir: str):
     stage 1 to run its interpret-mode kernel in a CPU test."""
     return small_dataset(outdir, genome=6_000, te_len=600, read_len=2_000,
                          step=500)
+
+
+def tail_dataset(outdir: str):
+    """small_dataset's recipe with a reference TE: a 12 kb genome (chrS)
+    holding a truncated copy of alpha (its last 700 bases, 3 % diverged, at
+    1 kb) besides one 1.2 kb insertion of alpha in its middle; the library
+    has alpha and a 1 kb beta.  Reads as small_dataset's: 4 kb every 1 kb,
+    twice over (8x), 4 % errors, every third reverse-complemented.  On it
+    every tail stage has a DP to run: ref_repeatmask finds the copy, and
+    liftover reads it as the nearest reference TE of the insertion's family
+    (its distance is in liftover_report.json).  Returns ((reads, ref, lib),
+    truth) with truth [(pos, family)]."""
+    from telr_tpu_torch.io.fasta import write_fasta
+    from telr_tpu_torch.io.seqs import Sequence
+    rng = np.random.default_rng(13)
+    genome = 12_000
+    ref = rng.integers(0, 4, genome).astype(np.int8)
+    lib = {"alpha": rng.integers(0, 4, 1_200).astype(np.int8),
+           "beta": rng.integers(0, 4, 1_000).astype(np.int8)}
+    copy = _noisy(rng, lib["alpha"][-700:], err=0.03)
+    ref = np.concatenate([ref[:1_000], copy,
+                          ref[1_000 + len(copy):]])[:genome]
+    pos = genome // 2
+    hap = np.concatenate([ref[:pos], lib["alpha"], ref[pos:]])
+    reads = []
+    _sample_reads(rng, hap, 4_000, 1_000, reads)
+    paths = [os.path.join(outdir, f) for f in ("reads.fa", "ref.fa",
+                                                 "lib.fa")]
+    write_fasta(reads, paths[0])
+    write_fasta([Sequence("chrS", ref)], paths[1])
+    write_fasta([Sequence(n, c) for n, c in lib.items()], paths[2])
+    return paths, [(pos, "alpha")]
 
 
 def nvidia_smi() -> str:
@@ -156,6 +196,83 @@ def kernel_launches() -> dict:
 def reset_launches() -> None:
     for k in _kernel_wrappers():
         k.launches = 0
+
+
+class StageTap(logging.Handler):
+    """The stage a pipeline run is in, read from the "stage <name> ..." line
+    run_pipeline logs as each stage starts (on the "telr_tpu" logger, which
+    the JAX package's pipeline logs the same line to).  A `with` block
+    attaches it, at INFO, for the block; `on_stage(old, new)` callbacks run
+    at every stage change."""
+
+    LOGGER = "telr_tpu"
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.stage = None
+        self.on_stage = []
+
+    def emit(self, record):
+        if record.msg == "stage %s ...":
+            new = record.args[0]
+            for fn in self.on_stage:
+                fn(self.stage, new)
+            self.stage = new
+
+    def __enter__(self):
+        log = logging.getLogger(self.LOGGER)
+        self._level = log.level
+        log.setLevel(logging.INFO)
+        log.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        log = logging.getLogger(self.LOGGER)
+        log.removeHandler(self)
+        log.setLevel(self._level)
+
+
+@contextlib.contextmanager
+def stage_record():
+    """Within the block, per pipeline stage: each kernel's launches, and
+    every grouped dispatch with wavefront work as [estimated cells
+    (mapper._wave_cells), whether it crossed the size gate to the kernels].
+    Yields {stage: {"launches": {...}, "dispatches": [[cells, on_card],
+    ...]}}, filled as the run goes."""
+    from telr_tpu_torch.kernels import mapper
+    rec = {}
+    last = [kernel_launches()]
+
+    def entry(stage):
+        return rec.setdefault(stage, {
+            "launches": {k: 0 for k in last[0]}, "dispatches": []})
+
+    def switch(old, _new):
+        now = kernel_launches()
+        if old is not None:
+            for k, v in now.items():
+                entry(old)["launches"][k] += v - last[0][k]
+        last[0] = now
+
+    real_gate = mapper._wave_goes_to_host
+    tap = StageTap()
+
+    def gate(wave_buckets, wave_ext_items):
+        to_host = real_gate(wave_buckets, wave_ext_items)
+        if wave_buckets or wave_ext_items:
+            entry(tap.stage)["dispatches"].append(
+                [mapper._wave_cells(wave_buckets, wave_ext_items),
+                 not to_host])
+        return to_host
+
+    tap.on_stage.append(switch)
+    mapper._wave_goes_to_host = gate
+    try:
+        with tap:
+            yield rec
+    finally:
+        mapper._wave_goes_to_host = real_gate
+        switch(tap.stage, None)
 
 
 def device_record(dev) -> dict:

@@ -18,7 +18,9 @@ import the JAX package and are never called here.
 Routing is the CLI's (--wavefront auto|on|off, --wavefront-stages); the run
 goes to the first CUDA card unless --device cpu.  The last line printed is
 the report as one JSON object: the JAX tool's keys plus the device, the
-card's nvidia-smi name and power limit, each kernel's launches and the peak
+card's nvidia-smi name and power limit, each kernel's launches (in all and
+by stage, with each grouped dispatch's estimated cells and whether it
+crossed the mapper's size gate: bench_pipeline.stage_record) and the peak
 device memory.
 
 Usage:
@@ -119,7 +121,8 @@ def run_eval(size=5_000_000, coverage=30, n_ins=30, seed=0,
     from telr_tpu_torch.pipeline import run_pipeline
     from telr_tpu_torch.tools.bench_pipeline import (device_record,
                                                      kernel_launches,
-                                                     reset_launches)
+                                                     reset_launches,
+                                                     stage_record)
     from telr_tpu_torch.utils.device import resolve
 
     dev = resolve(device)
@@ -139,12 +142,13 @@ def run_eval(size=5_000_000, coverage=30, n_ins=30, seed=0,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
-    res = run_pipeline(reads_fa, ref_fa, lib_fa,
-                       os.path.join(workdir, "out"), cfg,
-                       checkpoint_dir=os.path.join(workdir, "ckpt"),
-                       device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    with stage_record() as stages_rec:
+        res = run_pipeline(reads_fa, ref_fa, lib_fa,
+                           os.path.join(workdir, "out"), cfg,
+                           checkpoint_dir=os.path.join(workdir, "ckpt"),
+                           device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     pipe_s = time.time() - t0
 
     score = generators().score_calls(res.final_report, truth)
@@ -182,6 +186,9 @@ def run_eval(size=5_000_000, coverage=30, n_ins=30, seed=0,
         "wall_s": round(pipe_s, 1),
         "n_calls": len(res.final_report),
         "launches": kernel_launches(),
+        # per stage: launches, and each grouped dispatch's estimated cells
+        # and whether it crossed the size gate to the kernels
+        "stages": stages_rec,
         "workdir": workdir,
         **device_record(dev),
     }

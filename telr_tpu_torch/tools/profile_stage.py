@@ -188,11 +188,11 @@ def run(stage, workdir, device=None, wavefront="auto", threads=1,
         contig_te, te_seqs = annotate_contigs(
             contigs, passed, library, records, cfg.read_preset,
             cfg.annotate, LociEval(),
-            use_wavefront=cfg.wavefront_for("annotate"))
+            use_wavefront=cfg.wavefront_for("annotate"), device=dev)
         if not cfg.minimap2_family:
             contig_te = reannotate_families(
                 contig_te, te_seqs, library,
-                use_wavefront=cfg.wavefront_for("annotate"))
+                use_wavefront=cfg.wavefront_for("annotate"), device=dev)
         return contig_te
 
     if stage == "af":
@@ -215,7 +215,8 @@ def run(stage, workdir, device=None, wavefront="auto", threads=1,
         from telr_tpu_torch.af.freq import estimate_af
         te_freq = estimate_af(records, contigs, contig_te, reads, store,
                               cfg.read_preset, cfg.af, cfg.assembly,
-                              use_wavefront=cfg.wavefront_for("af"))
+                              use_wavefront=cfg.wavefront_for("af"),
+                              device=dev)
         return {"loci": len(records), "entries": len(te_freq)}
 
     kernels = {"wavefront_dp": (hw, "wavefront_dp"),

@@ -109,13 +109,18 @@ def evals(tmp_path_factory):
 def test_run_eval_writes_the_jax_tools_keys(evals):
     port, want, workdir = evals
     got = _keys(port)
-    for extra in ("device", "launches", "workdir"):
+    for extra in ("device", "launches", "stages", "workdir"):
         got.pop(extra)
     got["workload"].pop("chroms")
     assert got == _keys(want)
     assert port["device"] == "cpu"
     assert set(port["launches"]) == {"wavefront_dp", "wavefront_walk",
                                      "rowband_dp", "rowband_walk"}
+    # auto routing on the CPU: every stage on the host engine
+    assert set(port["stages"]) == set(port["stage_seconds"])
+    for rec in port["stages"].values():
+        assert rec["launches"] == dict.fromkeys(port["launches"], 0)
+        assert rec["dispatches"] == []
     with open(os.path.join(workdir, "genome_eval.json")) as f:
         assert json.load(f)["score"] == port["score"]
 
@@ -221,3 +226,22 @@ def test_bench_pipeline_prints_one_json_line(tmp_path, capsys):
             "recall", "calls", "stages_s"} <= set(rec)
     assert rec["recall"] == 1.0 and rec["calls"] == 3
     assert rec["device"] == "cpu" and rec["wavefront_stages"] is None
+
+
+def test_gate_sweep_prints_one_json_line(tmp_path, capsys):
+    """The sweep's record at one size (the plain kernels stand in for the
+    card on the CPU): both routes timed at both score sets."""
+    from telr_tpu_torch.tools import gate_sweep
+    gate_sweep.main(["--device", "cpu", "--size", "150000", "--coverage",
+                     "3", "--threads", "1", "--reps", "1", "--max-cells",
+                     "1.5e6", "--workdir", str(tmp_path)])
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["device"] == "cpu" and rec["threads"] == 1
+    assert set(rec["score_sets"]) == {"reads", "library"}
+    assert rec["score_sets"]["library"]["params"] == [2, 3, 5, 2]
+    for sset in rec["score_sets"].values():
+        (row,) = sset["sizes"]
+        assert 1 << 20 <= row["cells"] and row["jobs"] >= 1
+        for route in ("host_s", "wavefront_s"):
+            assert len(row[route]["runs"]) == 1 and row[route]["min"] > 0
+        assert set(sset["crossover"]) == {"cells", "clear_of_spread"}
