@@ -46,8 +46,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                stage seconds, launches by shape, peak device memory,
                precision / recall / F1 against the planted truth.
                Fails if a wavefront kernel was not launched, the vote did not
-               run on the card, an output file is missing or F1 < 0.8;
-  7. pipeline-mesh  the CLI with --mesh_devices 1 --wavefront off on a
+               run on the card, an output file is missing or F1 < 0.8.  The
+               run keeps per-stage checkpoints (--checkpoint_dir) for the
+               next phase;
+  7. entry-points  that run entered by other ways: its checkpointed stage-1
+               alignments written as a BAM (write_bam, with the reference's
+               sizes), the CLI on the BAM (--device cuda, auto routing; the
+               alignment stage is skipped) while a process of its own writes
+               them as a SAM and reads the SAM and the BAM back, then the
+               FASTA run again on its checkpoint directory.  Prints
+               the BAM's size and its write and read seconds, the runs'
+               stage seconds and walls, the BAM run's launches by stage and
+               peak device memory.  Fails unless the BAM run writes the FASTA
+               run's nine files, launches both wavefront kernels in assembly,
+               runs the vote on the card and reaches F1 >= 0.8; unless the SAM
+               gives the BAM's alignments and reads and every read rebuilt
+               from the records is its FASTA read; and unless the resumed run
+               restores alignment, te_filter, assembly and ref_repeatmask and
+               writes the first run's files (its loci_eval.tsv less the lines
+               of the loci te_filter and assembly dropped, which a restored
+               stage does not log again, as in the JAX package);
+  8. pipeline-mesh  the CLI with --mesh_devices 1 --wavefront off on a
                genome of the same make cut to MESH_SIZE (1 Mb, so that the
                whole script stays well inside its time limit): the same
                checks, plus the locus_redistribute
@@ -56,7 +75,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                the card; then at 300 kb the mesh run's output files byte for
                byte against a --wavefront off run without a mesh (the
                native host engine);
-  8. multiprocess  run_pipeline_multiprocess through
+  9. multiprocess  run_pipeline_multiprocess through
                telr_tpu_torch/tools/two_process_pipeline.py on a genome of
                the same make cut to MP_SIZE with MP_N_INS insertions (1 Mb
                and 5, for the time limit since the card-route, eval and bench
@@ -67,28 +86,29 @@ Phases, in order; any failure raises and the script exits non-zero:
                both wavefront kernels and ran the vote on the card, and
                F1 >= 0.8; prints stage seconds, walls, T1 / (2 T2), and each
                rank's launches and peak device memory;
-  9. profile   the CLI with --profile_dir at 300 kb and
+ 10. profile   the CLI with --profile_dir at 300 kb and
                telr_tpu_torch/tools/profile_report.py on its trace: per-stage
                device seconds and top kernels, the trace's size.  Fails
                unless alignment and assembly each show time in both
                wavefront kernels and no stage has more device time than wall;
- 10. card-route  the CLI with the mappers' size gate at 0 on
+ 11. card-route  the CLI with the mappers' size gate at 0 on
                telr_tpu_torch/tools/bench_pipeline.py's small_dataset with
                --wavefront_stages alignment,assembly, and on its tail_dataset
                (a reference copy of the inserted family) with --wavefront on,
                each with --device cuda and with --device cpu (the kernels'
                plain versions, which the CPU tests hold to the JAX package's
                files on the same routes; the CPU runs in processes of their
-               own beside the card runs).  Prints the tail run's launches by
+               own, started when the script starts, so that they run beside
+               the phases before this one).  Prints the tail run's launches by
                stage.  Fails unless each pair's nine files are
                byte-identical, both wavefront kernels launched on the card
                and, on tail_dataset, in each of the five tail stages;
- 11. eval      telr_tpu_torch/tools/genome_eval.py's run_eval on the card,
+ 12. eval      telr_tpu_torch/tools/genome_eval.py's run_eval on the card,
                auto routing: 1 Mb in two chromosomes, ONT-like reads and the
                ONT preset, the pipeline phases' coverage, insertions and
                seed.  Fails unless F1 >= 0.8 and both wavefront kernels
                launched;
- 12. bench     telr_tpu_torch/tools/bench.py with 3 trials (the score-only
+ 13. bench     telr_tpu_torch/tools/bench.py with 3 trials (the score-only
                wavefront DP on bench.py's workload, and its traceback path).
                Fails unless the kernel's gscore and best of the 64 pairs
                equal the plain version's (timed there).
@@ -101,6 +121,7 @@ path and read just after.  The last lines are a JSON summary of the kernels
 """
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -119,6 +140,8 @@ try:
                                                WAVEFRONT_OPS, bounds)
     # tools/genome_eval.py's dataset as the port's tools write it
     from telr_tpu_torch.tools.two_process_pipeline import simulate
+    # each kernel's launches by the stage the pipeline logs
+    from telr_tpu_torch.tools.bench_pipeline import stage_record
 except ImportError:
     sys.exit("chip_smoke: telr_tpu_torch/ is not beside this script; run it "
              "from a checkout of the repository")
@@ -139,8 +162,8 @@ KERNELS = {
 }
 
 PHASES = ("parity", "rowband-parity", "walk-tiles", "dist", "pipeline",
-          "pipeline-mesh", "mesh-identity", "multiprocess", "profile",
-          "card-route", "eval", "bench")
+          "entry-points", "pipeline-mesh", "mesh-identity", "multiprocess",
+          "profile", "card-route", "eval", "bench")
 # the pipeline-mesh phase's genome: on an NVIDIA H100 80GB HBM3 host the
 # mesh path at 3 Mb took 112-123 s of 802-938 s of phases; at 1 Mb the
 # script keeps its margin to its time limit on a slower host
@@ -154,6 +177,10 @@ MP_N_INS = 5
 # the files run_pipeline_multiprocess writes
 MP_FILES = tuple("reads.telr." + x for x in OUTPUTS) + (
     "reads.loci_eval.tsv",)
+# the dropped-locus ledger, and the drop reasons of the stages a resumed run
+# restores (te_filter's and assembly's)
+LEDGER = "reads.loci_eval.tsv"
+RESTORED_REASONS = ("VCF sequence not repeatmasked", "local assembly failed")
 
 
 def _related(rng, lq, lt, n_sub, indel=0):
@@ -1037,12 +1064,22 @@ def shape_lines(shapes, fields):
     return lines
 
 
-def phase_pipeline(device, size, coverage, n_ins, seed, threads, mesh=False):
+def phase_pipeline(device, size, coverage, n_ins, seed, threads, mesh=False,
+                   work=None):
     """The CLI on the simulated genome: default auto routing, or with
-    mesh=True the mesh path (--mesh_devices 1 --wavefront off)."""
+    mesh=True the mesh path (--mesh_devices 1 --wavefront off).  Given
+    `work`, a directory that outlives the phase, the run goes there with
+    --checkpoint_dir work/ckpt, and the entry-points phase reuses its
+    inputs, files and checkpoints.  Returns the launches and that run's
+    record."""
     tag = "pipeline-mesh" if mesh else "pipeline"
     extra = ["--mesh_devices", "1", "--wavefront", "off"] if mesh else []
-    with tempfile.TemporaryDirectory(prefix="telr_smoke_") as work:
+    with contextlib.ExitStack() as stack:
+        if work is None:
+            work = stack.enter_context(
+                tempfile.TemporaryDirectory(prefix="telr_smoke_"))
+        else:
+            extra += ["--checkpoint_dir", os.path.join(work, "ckpt")]
         t0 = time.perf_counter()
         inputs, truth, n_reads, n_bases, score_calls = simulate(
             work, size, coverage, n_ins, seed)
@@ -1051,8 +1088,9 @@ def phase_pipeline(device, size, coverage, n_ins, seed, threads, mesh=False):
               f"({n_bases / 1e6:.1f} Mb) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         out = os.path.join(work, "out")
-        res, launches, shapes, votes, depth, wall, peak = run_cli(
-            device, inputs, out, threads, coverage, extra)
+        with stage_record() as rec:
+            res, launches, shapes, votes, depth, wall, peak = run_cli(
+                device, inputs, out, threads, coverage, extra)
         missing = [x for x in OUTPUTS
                    if not os.path.isfile(os.path.join(out, "reads.telr."
                                                       + x))]
@@ -1068,6 +1106,8 @@ def phase_pipeline(device, size, coverage, n_ins, seed, threads, mesh=False):
           f"{peak / 2**30:.2f} GiB, launches {json.dumps(launches)}, "
           f"vote calls {json.dumps(votes)}, depth reductions "
           f"{json.dumps(depth)}")
+    print(f"{tag}: launches by stage (wavefront_dp / wavefront_walk): "
+          + launch_line(rec))
     for ln in breakdown:
         print(f"{tag}: " + ln)
     for ln in shape_lines(shapes["wavefront_dp"], ("W", "mode", "S_pad")):
@@ -1113,7 +1153,224 @@ def phase_pipeline(device, size, coverage, n_ins, seed, threads, mesh=False):
         raise AssertionError(f"missing outputs: {missing}")
     if score["f1"] < 0.8:
         raise AssertionError(f"F1 {score['f1']} < 0.8")
-    return launches
+    return launches, {"work": work, "inputs": inputs, "out": out,
+                      "ckpt": os.path.join(work, "ckpt"), "truth": truth,
+                      "score_calls": score_calls, "wall": wall,
+                      "n_reads": n_reads}
+
+
+def launch_line(rec):
+    """A stage_record's wavefront launches, one `stage dp / walk` a stage
+    that launched."""
+    return ", ".join(f"{st} {r['launches']['wavefront_dp']} / "
+                     f"{r['launches']['wavefront_walk']}"
+                     for st, r in rec.items()
+                     if r["launches"]["wavefront_dp"]
+                     or r["launches"]["wavefront_walk"]) or "none"
+
+
+def same_files(a, b, files=RUN_FILES):
+    """The files of `files` that differ between directories a and b."""
+    differ = []
+    for f in files:
+        with open(os.path.join(a, f), "rb") as x, \
+                open(os.path.join(b, f), "rb") as y:
+            if x.read() != y.read():
+                differ.append(f)
+    return differ
+
+
+def _store_rows(store):
+    return [(a.qname, a.qlen, a.qstart, a.qend, a.strand, a.tname, a.tlen,
+             a.tstart, a.tend, a.matches, a.blocklen, a.mapq, a.score,
+             tuple(a.cigar), a.primary) for a in store.all()]
+
+
+def sam_check(ckpt_dir, reads_fa, ref_fa, bam, sam):
+    """The entry-points phase's SAM half, in a process of its own beside the
+    BAM run: the checkpointed stage-1 store written as SAM with write_sam,
+    the SAM and the BAM read back.  Prints one JSON line: each step's
+    seconds, the files' sizes, the counts, and `faults`, the ways the SAM's
+    store or reads differ from the BAM's, the BAM holds fewer alignments
+    than the store, or a read rebuilt from the BAM differs from its FASTA
+    read."""
+    from telr_tpu_torch.io.fasta import read_fasta
+    from telr_tpu_torch.io.samio import read_bam, read_sam, write_sam
+    from telr_tpu_torch.utils.checkpoint import Checkpointer
+    rec, faults = {}, []
+
+    def timed(key, fn, *a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        rec[key] = time.perf_counter() - t0
+        return out
+    store = Checkpointer(ckpt_dir, lock=False).load_alignments("alignment")
+    reads = read_fasta(reads_fa)
+    timed("write_sam_s", write_sam, store, reads, sam,
+          tlens=read_fasta(ref_fa).sizes())
+    sam_store, sam_reads = timed("read_sam_s", read_sam, sam)
+    bam_store, bam_reads = timed("read_bam_s", read_bam, bam)
+    if len(bam_store) != len(store):
+        faults.append(f"the BAM holds {len(bam_store)} of {len(store)} "
+                      "alignments")
+    if _store_rows(sam_store) != _store_rows(bam_store):
+        faults.append("the SAM and the BAM give different stores")
+    if sam_reads.names() != bam_reads.names() or any(
+            not np.array_equal(x.codes, y.codes)
+            for x, y in zip(sam_reads, bam_reads)):
+        faults.append("the SAM and the BAM give different reads")
+    faults += [f"read {r.name} rebuilt from the BAM differs from the FASTA "
+               "read" for r in bam_reads
+               if not np.array_equal(r.codes, reads[r.name].codes)][:5]
+    rec.update(sam_bytes=os.path.getsize(sam), alignments=len(bam_store),
+               reads=len(bam_reads), fasta_reads=len(reads), faults=faults)
+    print(json.dumps(rec), flush=True)
+
+
+def phase_entry_points(device, run, threads, coverage, timeout_s=600):
+    """The pipeline phase's run entered another way, on its genome and with
+    its checkpoints: stage 1's alignments (as the run checkpointed them)
+    written as a BAM with write_bam, the CLI on that BAM (--device cuda,
+    auto routing: the alignment stage is skipped) while sam_check writes
+    the same store as SAM and reads both files back in a process of its
+    own, then the FASTA run again on its checkpoint directory.  Fails
+    unless the BAM run writes the FASTA run's nine files, launches both
+    wavefront kernels in assembly, runs the vote on the card and reaches
+    F1 >= 0.8; unless the SAM gives the BAM's store and reads, and each of
+    those reads is the FASTA read of its name; and unless the resumed run
+    writes the first run's nine files with alignment, te_filter, assembly
+    and ref_repeatmask restored (its loci_eval.tsv less the first run's
+    te_filter and assembly lines: a restored stage logs no drops, in the
+    JAX package too).  Returns the BAM run's launches and its launches by
+    stage."""
+    from telr_tpu_torch import pipeline
+    from telr_tpu_torch.io.fasta import read_fasta
+    from telr_tpu_torch.io.samio import write_bam
+    from telr_tpu_torch.utils.checkpoint import Checkpointer
+    reads_fa, ref_fa, lib_fa = run["inputs"]
+    work = os.path.join(run["work"], "entry")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    store = Checkpointer(run["ckpt"], lock=False).load_alignments("alignment")
+    reads = read_fasta(reads_fa)
+    t_load = time.perf_counter() - t0
+    # named as the FASTA reads, so the run's sample and file names match
+    bam, sam = os.path.join(work, "reads.bam"), os.path.join(work,
+                                                            "reads.sam")
+    t0 = time.perf_counter()
+    write_bam(store, reads, bam, tlens=read_fasta(ref_fa).sizes())
+    t_write = time.perf_counter() - t0
+    print(f"entry-points: {len(store)} alignments of {len(reads)} reads from "
+          f"the checkpoint and the FASTA reads in {t_load:.2f} s; BAM "
+          f"{os.path.getsize(bam)} bytes, write_bam {t_write:.2f} s",
+          flush=True)
+    del store, reads
+    check = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; chip_smoke.sam_check(*sys.argv[1:])",
+         run["ckpt"], reads_fa, ref_fa, bam, sam],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True)
+    try:
+        out = os.path.join(work, "bam_out")
+        with stage_record() as rec:
+            res, launches, _s, votes, _d, wall, peak = run_cli(
+                device, [bam, ref_fa, lib_fa], out, threads, coverage)
+        sam_out, _err = check.communicate(timeout=timeout_s)
+    finally:
+        if check.poll() is None:
+            check.kill()
+            check.wait()
+    if check.returncode:
+        raise AssertionError(f"the SAM check exited {check.returncode}")
+    sc = json.loads(sam_out.strip().splitlines()[-1])
+    print(f"entry-points: beside the BAM run: read_bam "
+          f"{sc['read_bam_s']:.2f} s ({sc['alignments']} alignments, "
+          f"{sc['reads']} of the {sc['fasta_reads']} reads); SAM "
+          f"{sc['sam_bytes']} bytes, write_sam {sc['write_sam_s']:.2f} s, "
+          f"read_sam {sc['read_sam_s']:.2f} s; faults {sc['faults']}",
+          flush=True)
+    score = run["score_calls"](res.final_report, run["truth"])
+    print("entry-points: BAM run stage seconds " + json.dumps(
+        {k: round(v, 2) for k, v in res.stage_seconds.items()}))
+    print(f"entry-points: BAM run wall {wall:.1f} s (the FASTA run "
+          f"{run['wall']:.1f} s), peak device memory {peak / 2**30:.2f} GiB, "
+          f"launches {json.dumps(launches)}, vote calls {json.dumps(votes)}",
+          flush=True)
+    print("entry-points: BAM run launches by stage (wavefront_dp / "
+          "wavefront_walk): " + launch_line(rec), flush=True)
+    print(f"entry-points: BAM run {len(res.final_report)} calls, precision "
+          f"{score['precision']} recall {score['recall']} F1 {score['f1']} "
+          f"(tp {score['tp']} fp {score['fp']} fn {score['fn']})",
+          flush=True)
+    differ = same_files(out, run["out"])
+    print(f"entry-points: BAM run against the FASTA run: "
+          f"{len(RUN_FILES) - len(differ)} of {len(RUN_FILES)} files "
+          "byte-identical", flush=True)
+
+    # the FASTA run again on its checkpoints; ref_repeatmask's restore is
+    # not among restored_stages (the JAX package's pipeline leaves it out
+    # too), so a spy counts the sweeps
+    sweeps = []
+    real_sweep = pipeline.repeatmask_reference
+
+    def sweep(*a, **k):
+        sweeps.append(1)
+        return real_sweep(*a, **k)
+    pipeline.repeatmask_reference = sweep
+    try:
+        out2 = os.path.join(work, "resume_out")
+        res2, launches2, _s, _v, _d, wall2, _p = run_cli(
+            device, run["inputs"], out2, threads, coverage,
+            ["--checkpoint_dir", run["ckpt"]])
+    finally:
+        pipeline.repeatmask_reference = real_sweep
+    restored = res2.restored_stages + ([] if sweeps else ["ref_repeatmask"])
+    # a restored stage does not run, so the loci it dropped are not logged
+    # again: the resumed ledger is the first run's less its te_filter and
+    # assembly lines, in the JAX package as in the port
+    # (tests/test_torch_resume.py holds both to that)
+    resumed_differ = same_files(out2, run["out"],
+                                [f for f in RUN_FILES if f != LEDGER])
+    with open(os.path.join(run["out"], LEDGER)) as f:
+        first_ledger = f.read().splitlines()
+    with open(os.path.join(out2, LEDGER)) as f:
+        resumed_ledger = f.read().splitlines()
+    kept = [ln for ln in first_ledger
+            if ln.split("\t", 1)[1] not in RESTORED_REASONS]
+    print(f"entry-points: resumed run wall {wall2:.1f} s, restored "
+          f"{', '.join(restored)}, stage seconds " + json.dumps(
+              {k: round(v, 2) for k, v in res2.stage_seconds.items()})
+          + f", launches {json.dumps(launches2)}; "
+          f"{len(RUN_FILES) - 1 - len(resumed_differ)} of "
+          f"{len(RUN_FILES) - 1} files byte-identical to the first run's; "
+          f"{LEDGER} {len(resumed_ledger)} lines against the first run's "
+          f"{len(first_ledger)}, of which {len(first_ledger) - len(kept)} "
+          "te_filter / assembly lines", flush=True)
+
+    if sc["faults"]:
+        raise AssertionError("; ".join(sc["faults"]))
+    if differ:
+        raise AssertionError(f"the BAM run and the FASTA run differ in "
+                             f"{differ}")
+    for k in ("wavefront_dp", "wavefront_walk"):
+        if rec.get("assembly", {}).get("launches", {}).get(k, 0) == 0:
+            raise AssertionError(f"the BAM run never launched {k} in "
+                                 "assembly")
+    if votes.get("cuda", 0) == 0:
+        raise AssertionError(f"the BAM run's vote did not run on the card: "
+                             f"{votes}")
+    if score["f1"] < 0.8:
+        raise AssertionError(f"BAM run F1 {score['f1']} < 0.8")
+    if restored != ["alignment", "te_filter", "assembly", "ref_repeatmask"]:
+        raise AssertionError(f"the resumed run restored {restored}")
+    if resumed_differ:
+        raise AssertionError(f"the resumed run's files differ in "
+                             f"{resumed_differ}")
+    if resumed_ledger != kept:
+        raise AssertionError(f"the resumed run's {LEDGER} is not the first "
+                             "run's less its te_filter and assembly lines")
+    return launches, {st: r["launches"] for st, r in rec.items()}
 
 
 def phase_mesh_identity(device, coverage, n_ins, seed, threads,
@@ -1275,7 +1532,53 @@ TAIL_STAGES = ("te_filter", "annotate_contig", "allele_frequency",
                "ref_repeatmask", "liftover")
 
 
-def phase_card_route(device, threads, timeout_s=900):
+class CpuRoutes:
+    """card-route's two --device cpu runs (the route the CPU tests hold to
+    the JAX package's files), each in a process of its own, started when
+    the script starts: they take most of that phase (70-120 s) and need
+    neither the card nor any other phase, so they run beside the phases
+    before it.  close() kills what still runs and removes their
+    directory."""
+
+    PAIRS = {"small": ("small_dataset",
+                       ["--wavefront_stages", "alignment,assembly"]),
+             "tail": ("tail_dataset", ["--wavefront", "on"])}
+
+    def __init__(self, threads):
+        from telr_tpu_torch.tools import bench_pipeline
+        self._dir = tempfile.TemporaryDirectory(prefix="telr_smoke_")
+        self.work = self._dir.name
+        self.inputs, self.procs = {}, {}
+        try:
+            for key, (dataset, extra) in self.PAIRS.items():
+                os.makedirs(os.path.join(self.work, key))
+                self.inputs[key], _truth = getattr(bench_pipeline, dataset)(
+                    os.path.join(self.work, key))
+                # a file, not a pipe: nothing reads it until card-route
+                with open(self.stdout(key), "w") as out:
+                    self.procs[key] = subprocess.Popen(
+                        [sys.executable, "-c", CPU_ROUTE_RUN] + cli_argv(
+                            self.inputs[key],
+                            os.path.join(self.work, key, "cpu"), threads, 8,
+                            extra, cli_device="cpu"),
+                        cwd=os.path.dirname(os.path.abspath(__file__)),
+                        stdout=out)
+        except BaseException:
+            self.close()
+            raise
+
+    def stdout(self, key):
+        return os.path.join(self.work, key, "cpu_run.out")
+
+    def close(self):
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        self._dir.cleanup()
+
+
+def phase_card_route(device, threads, routes, timeout_s=900):
     """The card route against the route the CPU tests hold to the JAX
     package, the mappers' size gate at 0 so that the small batches reach the
     kernels, on two run pairs: the CLI on small_dataset
@@ -1284,61 +1587,38 @@ def phase_card_route(device, threads, timeout_s=900):
     tail_dataset (the same make with a reference copy of the inserted
     family) with --wavefront on, all seven stages.  Each pair runs once with
     --device cuda (the kernels) and once with --device cpu (their plain
-    versions); the CPU runs go in processes of their own, both started
-    before the card runs, since they take most of the phase.  Fails unless
-    each pair's nine files are byte-identical, both wavefront kernels
-    launched on the card and none in the CPU runs, and, on tail_dataset,
-    both launched in each of the five tail stages.  Returns the card runs'
-    launches and the tail run's by stage."""
+    versions); the CPU runs are `routes` (CpuRoutes), started with the
+    script.  Fails unless each pair's nine files are byte-identical, both
+    wavefront kernels launched on the card and none in the CPU runs, and,
+    on tail_dataset, both launched in each of the five tail stages.  Returns
+    the card runs' launches and the tail run's by stage."""
     from telr_tpu_torch.kernels import mapper
-    from telr_tpu_torch.tools.bench_pipeline import (small_dataset,
-                                                     stage_record,
-                                                     tail_dataset)
-    pairs = {"small": (small_dataset,
-                       ["--wavefront_stages", "alignment,assembly"]),
-             "tail": (tail_dataset, ["--wavefront", "on"])}
+    pairs, work = CpuRoutes.PAIRS, routes.work
     gate = mapper._WAVE_MIN_CELLS
     seen, by_stage, same = {}, {}, {}
-    procs = {}
-    with tempfile.TemporaryDirectory(prefix="telr_smoke_") as work:
-        try:
-            inputs = {}
-            for key, (dataset, extra) in pairs.items():
-                os.makedirs(os.path.join(work, key))
-                inputs[key], _truth = dataset(os.path.join(work, key))
-                procs[key] = subprocess.Popen(
-                    [sys.executable, "-c", CPU_ROUTE_RUN] + cli_argv(
-                        inputs[key], os.path.join(work, key, "cpu"), threads,
-                        8, extra, cli_device="cpu"),
-                    cwd=os.path.dirname(os.path.abspath(__file__)),
-                    stdout=subprocess.PIPE, text=True)
-            mapper._WAVE_MIN_CELLS = 0
-            for key, (_dataset, extra) in pairs.items():
-                with stage_record() as rec:
-                    _res, launches, _s, votes, _d, wall, _p = run_cli(
-                        device, inputs[key], os.path.join(work, key, "cuda"),
-                        threads, 8, extra)
-                seen[key] = {"cuda": (launches, votes, wall)}
-                by_stage[key] = {st: r["launches"] for st, r in rec.items()}
-            for key, proc in procs.items():
-                out, _err = proc.communicate(timeout=timeout_s)
-                if proc.returncode:
-                    raise AssertionError(f"card-route: the {key} --device "
-                                         f"cpu run exited {proc.returncode}")
-                run = json.loads(out.strip().splitlines()[-1])
-                seen[key]["cpu"] = (run["launches"], run["votes"],
-                                    run["wall"])
-                same[key] = []
-                for f in RUN_FILES:
-                    with open(os.path.join(work, key, "cuda", f), "rb") as a, \
-                            open(os.path.join(work, key, "cpu", f), "rb") as b:
-                        same[key].append(a.read() == b.read())
-        finally:
-            mapper._WAVE_MIN_CELLS = gate
-            for proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+    try:
+        mapper._WAVE_MIN_CELLS = 0
+        for key, (_dataset, extra) in pairs.items():
+            with stage_record() as rec:
+                _res, launches, _s, votes, _d, wall, _p = run_cli(
+                    device, routes.inputs[key],
+                    os.path.join(work, key, "cuda"), threads, 8, extra)
+            seen[key] = {"cuda": (launches, votes, wall)}
+            by_stage[key] = {st: r["launches"] for st, r in rec.items()}
+    finally:
+        mapper._WAVE_MIN_CELLS = gate
+    for key, proc in routes.procs.items():
+        if proc.wait(timeout=timeout_s):
+            raise AssertionError(f"card-route: the {key} --device "
+                                 f"cpu run exited {proc.returncode}")
+        with open(routes.stdout(key)) as f:
+            run = json.loads(f.read().strip().splitlines()[-1])
+        seen[key]["cpu"] = (run["launches"], run["votes"], run["wall"])
+        same[key] = []
+        for f in RUN_FILES:
+            with open(os.path.join(work, key, "cuda", f), "rb") as a, \
+                    open(os.path.join(work, key, "cpu", f), "rb") as b:
+                same[key].append(a.read() == b.read())
     for key, (_dataset, extra) in pairs.items():
         (lc, vc, wc), (lp, vp, wp) = seen[key]["cuda"], seen[key]["cpu"]
         print(f"card-route: {key}_dataset, {' '.join(extra)}, gate 0: "
@@ -1494,61 +1774,85 @@ def main(argv=None):
         print(f"{phase}: phase took {now - clock[0]:.1f} s", flush=True)
         clock[0] = now
 
-    if "parity" in phases:
-        results = phase_parity(device)
-        for r in results:
-            print("parity: " + json.dumps(r) + f" [{smi}]", flush=True)
-        walk_lines("wavefront_walk", results)
-        done("parity")
-    if "rowband-parity" in phases:
-        rb_results = phase_rowband_parity(device)
-        for r in rb_results:
-            print("parity: " + json.dumps(r) + f" [{smi}]", flush=True)
-        walk_lines("rowband_walk", rb_results)
-        done("rowband-parity")
-    if "walk-tiles" in phases:
-        tile_results = phase_walk_tiles(device)
-        for r in tile_results:
-            print("walk-tiles: " + json.dumps(r) + f" [{smi}]", flush=True)
-        for kernel in ("rowband_walk", "wavefront_walk"):
-            walk_lines(kernel, [r for r in tile_results
-                                if r["kernel"] == kernel])
-        done("walk-tiles")
-    if "dist" in phases:
-        score_launches = phase_dist(device)
-        done("dist")
-    if "pipeline" in phases:
-        launches = phase_pipeline(device, args.size, args.coverage,
-                                  args.n_ins, args.seed, threads)
-        done("pipeline")
-    if "pipeline-mesh" in phases:
-        mesh_launches = phase_pipeline(device, min(args.size, MESH_SIZE),
-                                       args.coverage, args.n_ins, args.seed,
-                                       threads, mesh=True)
-        done("pipeline-mesh")
-    if "mesh-identity" in phases:
-        phase_mesh_identity(device, args.coverage, args.n_ins, args.seed,
-                            threads)
-        done("mesh-identity")
-    if "multiprocess" in phases:
-        # two ranks share the host's cores: the same thread budget each
-        mp_launches = phase_multiprocess(min(args.size, MP_SIZE),
-                                         args.coverage,
-                                         min(args.n_ins, MP_N_INS), args.seed,
-                                         max(1, threads // 2))
-        done("multiprocess")
-    if "profile" in phases:
-        phase_profile(device, args.coverage, args.n_ins, args.seed, threads)
-        done("profile")
-    if "card-route" in phases:
-        route_launches = phase_card_route(device, threads)
-        done("card-route")
-    if "eval" in phases:
-        eval_rep = phase_eval(args.coverage, args.n_ins, args.seed, threads)
-        done("eval")
-    if "bench" in phases:
-        bench_rec = phase_bench()
-        done("bench")
+    # the native host engine, built at its first use: here, before this
+    # script starts processes that load it
+    from telr_tpu_torch.io import native
+    native.load()
+    with contextlib.ExitStack() as stack:
+        # card-route's CPU runs need neither the card nor any other phase:
+        # they start now and run beside the phases before card-route
+        if "card-route" in phases:
+            routes = CpuRoutes(threads)
+            stack.callback(routes.close)
+        if "parity" in phases:
+            results = phase_parity(device)
+            for r in results:
+                print("parity: " + json.dumps(r) + f" [{smi}]", flush=True)
+            walk_lines("wavefront_walk", results)
+            done("parity")
+        if "rowband-parity" in phases:
+            rb_results = phase_rowband_parity(device)
+            for r in rb_results:
+                print("parity: " + json.dumps(r) + f" [{smi}]", flush=True)
+            walk_lines("rowband_walk", rb_results)
+            done("rowband-parity")
+        if "walk-tiles" in phases:
+            tile_results = phase_walk_tiles(device)
+            for r in tile_results:
+                print("walk-tiles: " + json.dumps(r) + f" [{smi}]", flush=True)
+            for kernel in ("rowband_walk", "wavefront_walk"):
+                walk_lines(kernel, [r for r in tile_results
+                                    if r["kernel"] == kernel])
+            done("walk-tiles")
+        if "dist" in phases:
+            score_launches = phase_dist(device)
+            done("dist")
+        # the pipeline phase's run, its files and checkpoints, which the
+        # entry-points phase enters again by other ways (or makes itself when
+        # --phases leaves the pipeline phase out)
+        with tempfile.TemporaryDirectory(prefix="telr_smoke_") as pipe_work:
+            pipe_run = None
+            if "pipeline" in phases:
+                launches, pipe_run = phase_pipeline(
+                    device, args.size, args.coverage, args.n_ins, args.seed,
+                    threads, work=pipe_work)
+                done("pipeline")
+            if "entry-points" in phases:
+                if pipe_run is None:
+                    _l, pipe_run = phase_pipeline(
+                        device, args.size, args.coverage, args.n_ins, args.seed,
+                        threads, work=pipe_work)
+                entry_launches, entry_by_stage = phase_entry_points(
+                    device, pipe_run, threads, args.coverage)
+                done("entry-points")
+        if "pipeline-mesh" in phases:
+            mesh_launches, _run = phase_pipeline(
+                device, min(args.size, MESH_SIZE), args.coverage, args.n_ins,
+                args.seed, threads, mesh=True)
+            done("pipeline-mesh")
+        if "mesh-identity" in phases:
+            phase_mesh_identity(device, args.coverage, args.n_ins, args.seed,
+                                threads)
+            done("mesh-identity")
+        if "multiprocess" in phases:
+            # two ranks share the host's cores: the same thread budget each
+            mp_launches = phase_multiprocess(min(args.size, MP_SIZE),
+                                             args.coverage,
+                                             min(args.n_ins, MP_N_INS), args.seed,
+                                             max(1, threads // 2))
+            done("multiprocess")
+        if "profile" in phases:
+            phase_profile(device, args.coverage, args.n_ins, args.seed, threads)
+            done("profile")
+        if "card-route" in phases:
+            route_launches = phase_card_route(device, threads, routes)
+            done("card-route")
+        if "eval" in phases:
+            eval_rep = phase_eval(args.coverage, args.n_ins, args.seed, threads)
+            done("eval")
+        if "bench" in phases:
+            bench_rec = phase_bench()
+            done("bench")
 
     for mod in ("jax", "telr_tpu"):
         if mod in sys.modules:
@@ -1609,7 +1913,11 @@ def main(argv=None):
                 tail_route_launches_by_stage={
                     st: n[name] for st, n in
                     route_launches["tail_by_stage"].items()},
-                eval_launches=eval_rep["launches"][name])
+                eval_launches=eval_rep["launches"][name],
+                bam_run_launches=entry_launches[name],
+                bam_run_launches_by_stage={
+                    st: n[name] for st, n in entry_by_stage.items()
+                    if n[name]})
             if name == "wavefront_dp":
                 # the score-only instance on the bench's path
                 entry.update(

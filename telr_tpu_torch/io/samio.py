@@ -26,56 +26,67 @@ from telr_tpu_torch.io.seqs import SeqDict, Sequence, encode, revcomp_codes
 from telr_tpu_torch.kernels.mapper import Alignment
 
 _CIG_RE = re.compile(r"(\d+)([MIDNSHP=X])")
+# the operations by BAM code (SAM spec §4.2), each code's internal kind
+# (1 M, 2 I, 3 D; 0 dropped: S/H/P) and each operation letter's code
+_BAM_CIGAR_OPS = "MIDNSHP=X"
+_KIND = np.array([1, 2, 3, 3, 0, 0, 0, 1, 1], np.int8)
+_KIND_OP = ("", "M", "I", "D")
+_CODE_OF_OP = np.zeros(256, np.uint8)
+for _i, _op in enumerate(_BAM_CIGAR_OPS):
+    _CODE_OF_OP[ord(_op)] = _i
+
+
+def _split_cigar(s: str) -> Tuple[np.ndarray, np.ndarray]:
+    """SAM CIGAR -> (BAM codes, lengths) of the operations it holds."""
+    found = _CIG_RE.findall(s)
+    lens = np.array([int(ln) for ln, _ in found], np.int64)
+    return _CODE_OF_OP[np.frombuffer(
+        "".join(op for _, op in found).encode(), np.uint8)], lens
+
+
+def _fold(codes: np.ndarray, lens: np.ndarray) -> List[Tuple[str, int]]:
+    """BAM operation codes and lengths -> internal ops (parse_cigar's
+    rule), neighbours of one kind merged; in numpy, since a long read's
+    record carries hundreds of operations."""
+    kinds = _KIND[codes]
+    keep = kinds > 0
+    kinds, lens = kinds[keep], lens[keep]
+    if not len(kinds):
+        return []
+    first = np.flatnonzero(np.r_[True, kinds[1:] != kinds[:-1]])
+    return list(zip([_KIND_OP[k] for k in kinds[first].tolist()],
+                    np.add.reduceat(lens, first).tolist()))
 
 
 def parse_cigar(s: str) -> List[Tuple[str, int]]:
     """SAM CIGAR -> internal ops.  =/X fold into M; N folds into D;
     H/P are dropped; S is returned separately by the caller via spans."""
-    out: List[Tuple[str, int]] = []
-
-    def push(op, ln):
-        if out and out[-1][0] == op:
-            out[-1] = (op, out[-1][1] + ln)
-        else:
-            out.append((op, ln))
-
-    for ln, op in _CIG_RE.findall(s):
-        ln = int(ln)
-        if op in ("M", "=", "X"):
-            push("M", ln)
-        elif op == "I":
-            push("I", ln)
-        elif op in ("D", "N"):
-            push("D", ln)
-        # S/H/P: not part of the aligned block
-    return out
-
-
-def _clips(s: str) -> Tuple[int, int]:
-    """(leading, trailing) soft/hard clip lengths."""
-    ops = _CIG_RE.findall(s)
-    lead = int(ops[0][0]) if ops and ops[0][1] in "SH" else 0
-    tail = int(ops[-1][0]) if ops and ops[-1][1] in "SH" else 0
-    return lead, tail
+    return _fold(*_split_cigar(s))
 
 
 def _ingest(qname: str, flag: int, rname: str, pos1: int, mapq: int,
-            cigar: str, seq: str, sq_len: Dict[str, int],
-            alns: List[Alignment], reads: SeqDict) -> None:
-    """Fold one SAM/BAM record into (alns, reads).  Reads are reconstructed
+            cigar: Tuple[np.ndarray, np.ndarray], seq: str,
+            sq_len: Dict[str, int], alns: List[Alignment],
+            reads: SeqDict) -> None:
+    """Fold one SAM/BAM record into (alns, reads); `cigar` is its
+    operations' (BAM codes, lengths), and a record without CIGAR ("*") is
+    skipped by the caller.  Reads are reconstructed
     from SEQ fields of primary alignments (reverse-complemented back to
     original orientation for flag 0x10), the same information `samtools
     fasta` extracts for the reference's BAM input path
     (TELR_input.py:329-348)."""
-    if flag & 4 or rname == "*" or cigar == "*":
+    if flag & 4 or rname == "*":
         return
     secondary = bool(flag & 0x100)
     reverse = bool(flag & 0x10)
-    ops = parse_cigar(cigar)
-    lead, tail = _clips(cigar)
-    nm = sum(l for op, l in ops if op == "M")
-    ni = sum(l for op, l in ops if op == "I")
-    nd = sum(l for op, l in ops if op == "D")
+    op_codes, op_lens = cigar
+    ops = _fold(op_codes, op_lens)
+    # (leading, trailing) soft/hard clip lengths
+    n_ops = len(op_codes)
+    lead = int(op_lens[0]) if n_ops and op_codes[0] in (4, 5) else 0
+    tail = int(op_lens[-1]) if n_ops and op_codes[-1] in (4, 5) else 0
+    kinds = _KIND[op_codes]
+    nm, ni, nd = (int(op_lens[kinds == k].sum()) for k in (1, 2, 3))
     qlen = lead + nm + ni + tail
     tstart = pos1 - 1
     tend = tstart + nm + nd
@@ -116,17 +127,15 @@ def read_sam(path: str, tlens: Optional[Dict[str, int]] = None
                         sq_len[fields["SN"]] = int(fields["LN"])
                 continue
             e = line.rstrip("\n").split("\t")
-            if len(e) < 11:
+            if len(e) < 11 or e[5] == "*":
                 continue
-            _ingest(e[0], int(e[1]), e[2], int(e[3]), int(e[4]), e[5],
-                    e[9], sq_len, alns, reads)
+            _ingest(e[0], int(e[1]), e[2], int(e[3]), int(e[4]),
+                    _split_cigar(e[5]), e[9], sq_len, alns, reads)
     return AlignmentStore(alns), reads
 
 
-# BAM binary decode tables (SAM spec §4.2): 4-bit seq nibbles and cigar ops
-_BAM_CIGAR_OPS = "MIDNSHP=X"
-_NIB = "=ACMGRSVTWYHKDBN"
-_SEQ_BYTE = ["%s%s" % (_NIB[b >> 4], _NIB[b & 0xF]) for b in range(256)]
+# BAM binary decode table (SAM spec §4.2): the base of each 4-bit nibble
+_NIB = np.frombuffer(b"=ACMGRSVTWYHKDBN", np.uint8)
 
 
 def read_bam(path: str) -> Tuple[AlignmentStore, SeqDict]:
@@ -170,21 +179,22 @@ def read_bam(path: str) -> Tuple[AlignmentStore, SeqDict]:
         p = off + 32
         qname = data[p:p + l_read_name - 1].decode()
         p += l_read_name
-        cig = struct.unpack_from("<%dI" % n_cigar, data, p)
+        cig = np.frombuffer(data, "<u4", n_cigar, p)
         p += 4 * n_cigar
         nbytes = (l_seq + 1) // 2
         if l_seq:
-            raw = data[p:p + nbytes]
-            seq = "".join([_SEQ_BYTE[b] for b in raw])[:l_seq]
+            raw = np.frombuffer(data, np.uint8, nbytes, p)
+            bases = np.empty(2 * nbytes, np.uint8)
+            bases[0::2], bases[1::2] = _NIB[raw >> 4], _NIB[raw & 0xF]
+            seq = bases[:l_seq].tobytes().decode()
         else:
             seq = "*"
         # qual + tags skipped
         off = end
-        if ref_id < 0:
+        if ref_id < 0 or not n_cigar:
             continue
-        cigar = "".join("%d%s" % (c >> 4, _BAM_CIGAR_OPS[c & 0xF])
-                        for c in cig) or "*"
-        _ingest(qname, flag, ref_names[ref_id], pos + 1, mapq, cigar,
+        _ingest(qname, flag, ref_names[ref_id], pos + 1, mapq,
+                (cig & 0xF, (cig >> 4).astype(np.int64)),
                 seq, sq_len, alns, reads)
     return AlignmentStore(alns), reads
 
@@ -197,6 +207,9 @@ def read_alignment_file(path: str) -> Tuple[AlignmentStore, SeqDict]:
 
 
 _SEQ_NIBBLE = {"A": 1, "C": 2, "G": 4, "T": 8, "N": 15}
+_NIBBLE_OF_BYTE = np.full(256, 15, np.uint8)
+for _ch, _nib in _SEQ_NIBBLE.items():
+    _NIBBLE_OF_BYTE[ord(_ch)] = _nib
 _BGZF_EOF = bytes.fromhex(
     "1f8b08040000000000ff0600424302001b0003000000000000000000")
 
@@ -281,13 +294,13 @@ def write_bam(store: AlignmentStore, reads: SeqDict, path: str,
                 "<iiBBHHHiiii", rid[a.tname], a.tstart, len(qn), a.mapq,
                 0, len(cig), flag, len(seq), -1, -1, 0))
             rec.write(qn)
-            for op, ln in cig:
-                rec.write(struct.pack("<I", (ln << 4) | op_idx[op]))
-            packed = bytearray((len(seq) + 1) // 2)
-            for i, ch in enumerate(seq):
-                nib = _SEQ_NIBBLE.get(ch, 15)
-                packed[i // 2] |= nib << (4 if i % 2 == 0 else 0)
-            rec.write(bytes(packed))
+            rec.write(np.array([(ln << 4) | op_idx[op] for op, ln in cig],
+                               "<u4").tobytes())
+            # two bases a byte, the first in the high nibble
+            nib = _NIBBLE_OF_BYTE[np.frombuffer(seq.encode(), np.uint8)]
+            if len(nib) % 2:
+                nib = np.append(nib, np.uint8(0))
+            rec.write((nib[0::2] << 4 | nib[1::2]).tobytes())
             rec.write(b"\xff" * len(seq))  # qual absent
             rb = rec.getvalue()
             body.write(struct.pack("<i", len(rb)))
