@@ -113,6 +113,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                Fails unless the kernel's gscore and best of the 64 pairs
                equal the plain version's (timed there).
 
+One phase runs only when asked for, alone, on a host of two or more cards
+(`python3 chip_smoke.py --phases multicard`; its checks are sized for
+four):
+
+ multicard  the multi-card half, on every card torch sees: (a) the dist
+               components (score steps, runner with walks, depth reduction,
+               all-to-all) on a (2, 2) mesh, bit for bit against a one-card
+               mesh and the host references, and one batch of the runner on
+               one card and on all of them, with each card's busy window
+               from a torch.profiler trace; (b) tools/exchange_bench.py at
+               one rank a card, over gloo and over NCCL on the same seeded
+               inputs, the received items equal, each timed; (c) the
+               multi-process runner at 1, 2 and 4 ranks, one a card, over
+               NCCL, on the pipeline phase's genome (--size); (d) the CLI at
+               --mesh_devices 1, 2 and 4 (--wavefront off) on that genome.
+               Fails unless every file equals the one-card run's, every
+               rank ran over NCCL with its kernels and vote on its own card,
+               every card of a mesh launched both row-banded kernels, and
+               F1 >= 0.8.  Prints stage seconds, launches by card, peak
+               device memory, the exchange's seconds and bytes, then a JSON
+               summary, nvidia-smi's line for every card and the ok line.
+
 Every kernel's launch count is set to 0 just before the phase that drives its
 path and read just after.  The last lines are a JSON summary of the kernels
 (time, plain time, launches and the least time the card could take, see
@@ -164,6 +186,9 @@ KERNELS = {
 PHASES = ("parity", "rowband-parity", "walk-tiles", "dist", "pipeline",
           "entry-points", "pipeline-mesh", "mesh-identity", "multiprocess",
           "profile", "card-route", "eval", "bench")
+# phases that run only when --phases names them: the multi-card half needs
+# two or more cards
+EXTRA_PHASES = ("multicard",)
 # the pipeline-mesh phase's genome: on an NVIDIA H100 80GB HBM3 host the
 # mesh path at 3 Mb took 112-123 s of 802-938 s of phases; at 1 Mb the
 # script keeps its margin to its time limit on a slower host
@@ -841,21 +866,38 @@ def phase_rowband_parity(device):
 
 def phase_dist(device):
     """The single-process mesh modules on a one-card mesh.  Returns the
-    row-banded launches the score steps and the runner made."""
+    row-banded launches the score steps made."""
+    from telr_tpu_torch.dist.mesh import make_mesh
+    mesh = make_mesh(1, device=device)
+    if [str(d) for d in mesh.flat_devices()] != [str(device)]:
+        raise AssertionError(f"the mesh is not on {device}: {mesh}")
+    return dist_components(mesh)["score_launches"]
+
+
+def dist_components(mesh):
+    """The single-process mesh modules on `mesh`, each against its host
+    reference: the score steps (against the plain DP), the sharded runner
+    (its direction bytes against the native engine, and align_pairs through
+    its device walks against the native engine's align_pairs), the depth
+    reduction (against AlignmentStore.coverage) and the locus all-to-all
+    (against the owner rule).  The inputs do not depend on the mesh.
+    Returns every component's outputs, for holding one mesh's against
+    another's, and the row-banded launches, in all and by card."""
     import torch
     from telr_tpu_torch.core.alignstore import AlignmentStore
     from telr_tpu_torch.dist import exec as dexec
     from telr_tpu_torch.dist import pipeline as dpipe
     from telr_tpu_torch.dist import redistribute as dred
-    from telr_tpu_torch.dist.mesh import make_mesh
+    from telr_tpu_torch.dist.mesh import LOCI_AXIS, READS_AXIS
     from telr_tpu_torch.io import native
     from telr_tpu_torch.kernels import dp, hopper_dp
-    mesh = make_mesh(1, device=device)
-    if [str(d) for d in mesh.flat_devices()] != [str(device)]:
-        raise AssertionError(f"the mesh is not on {device}: {mesh}")
+    n_reads, n_loci = mesh.shape[READS_AXIS], mesh.shape[LOCI_AXIS]
+    # the plain version runs on the mesh's first card
+    device = mesh.flat_devices()[0]
     ptuple = dp.DPParams().tuple()
     rng = np.random.default_rng(5)
     W = 128
+    outs = {}
 
     def plain(q, t, off, qlen, tlen, mode, tb):
         dts = (torch.int8, torch.int8, torch.int32, torch.int32, torch.int32)
@@ -866,6 +908,8 @@ def phase_dist(device):
             *args, W, mode, ptuple, tb)]
 
     hopper_dp.rowband_dp.launches = 0
+    hopper_dp.rowband_dp.cards.clear()
+    hopper_dp.rowband_walk.cards.clear()
     # stage-1 score step: reads against one replicated reference window
     B, LQ, LT = 64, 1024, 1280
     t = rng.integers(0, 4, LT).astype(np.int8)
@@ -882,6 +926,7 @@ def phase_dist(device):
         want = plain(q, tb_, off, qlen, tl_, mode, False)
         if not all(np.array_equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"sharded align step differs, mode {mode}")
+        outs[f"align_step_{mode}"] = got
     # per-locus score step
     L, R = 8, 8
     contigs = rng.integers(0, 4, (L, LT)).astype(np.int8)
@@ -897,6 +942,7 @@ def phase_dist(device):
                  np.repeat(tlen3, R), dp.EXTEND, False)
     if not all(np.array_equal(g.reshape(-1), w) for g, w in zip(got, want)):
         raise AssertionError("locus score step differs")
+    outs["locus_step"] = got
     score_launches = hopper_dp.rowband_dp.launches
     # the sharded runner (numpy in, numpy out) against the native engine
     got = dexec.sharded_dp_runner(mesh)(q, tb_, off, qlen, tl_, width=W,
@@ -911,9 +957,13 @@ def phase_dist(device):
         if not np.array_equal(got[0][b, :qlen[b]], want[0][b, :qlen[b]]):
             raise AssertionError("sharded runner direction bytes differ "
                                  "from the native engine")
+    outs["runner"] = [got[0][b, :qlen[b]] for b in range(B)] + list(got[1:])
     launches = hopper_dp.rowband_dp.launches
-    if score_launches != 4 or launches != 5:
-        raise AssertionError(f"expected 4 + 1 launches, saw {launches}")
+    if score_launches != 3 * n_reads + n_loci \
+            or launches != score_launches + n_reads:
+        raise AssertionError(f"expected {3 * n_reads + n_loci} + {n_reads} "
+                             f"launches, saw {score_launches} + "
+                             f"{launches - score_launches}")
     # align_pairs through the runner's device walks against the native
     # engine's align_pairs: the result dicts, both cigar forms
     par = dp.DPParams()
@@ -942,6 +992,7 @@ def phase_dist(device):
                 raise AssertionError(f"align_pairs item {k} (cigar_arrays="
                                      f"{arrays}) differs between the walk "
                                      "runner and the native engine")
+        outs[f"align_pairs_{arrays}"] = got
     walk_launches = hopper_dp.rowband_walk.launches
     if walk_launches == 0 or \
             hopper_dp.rowband_dp.launches != launches + walk_launches:
@@ -970,22 +1021,53 @@ def phase_dist(device):
     if dexec.mesh_coverage.device_calls != {"cuda": 1}:
         raise AssertionError("the depth reduction did not run on the card: "
                              f"{dexec.mesh_coverage.device_calls}")
-    # locus all-to-all round trip (one shard routes to itself)
-    items = [[(int(rng.integers(0, 50)), k, k % 2,
-               rng.integers(0, 4, int(rng.integers(500, 20000))).astype(
-                   np.int8)) for k in range(200)]]
-    (got,) = dred.redistribute_payloads(mesh, items, max_bytes=1 << 22)
-    want = sorted(items[0], key=lambda x: (x[0], x[2], x[1]))
-    if len(got) != len(want) or not all(
-            g[:3] == w[:3] and np.array_equal(g[3], w[3])
-            for g, w in zip(got, want)):
-        raise AssertionError("redistribute_payloads round trip differs")
+    outs["depth"] = cov
+    # locus all-to-all: item k starts on shard k % n, each shard receives
+    # exactly its loci's items
+    all_items = [(int(rng.integers(0, 50)), k, k % 2,
+                  rng.integers(0, 4, int(rng.integers(500, 20000))).astype(
+                      np.int8)) for k in range(200)]
+    items = [all_items[s::n_reads] for s in range(n_reads)]
+    got = dred.redistribute_payloads(mesh, items, max_bytes=1 << 22)
+    for dst in range(n_reads):
+        want = sorted((it for it in all_items
+                       if dred.owner_of(it[0], n_reads) == dst),
+                      key=lambda x: (x[0], x[2], x[1]))
+        if len(got[dst]) != len(want) or not all(
+                g[:3] == w[:3] and np.array_equal(g[3], w[3])
+                for g, w in zip(got[dst], want)):
+            raise AssertionError(f"redistribute_payloads differs on shard "
+                                 f"{dst} of {n_reads}")
+    outs["all_to_all"] = sorted((it for lst in got for it in lst),
+                                key=lambda x: (x[0], x[2], x[1]))
+    by_card = {"rowband_dp": dict(hopper_dp.rowband_dp.cards),
+               "rowband_walk": dict(hopper_dp.rowband_walk.cards)}
     print(f"dist: score steps, runner, depth ({len(alns)} alignments, peak "
-          f"depth {int(cov.max())}) and all-to-all ({len(want)} payloads) "
-          f"agree on {mesh}; row-banded launches {launches}, then "
+          f"depth {int(cov.max())}) and all-to-all ({len(all_items)} "
+          f"payloads) agree on {mesh}; row-banded launches {launches}, then "
           f"{walk_launches} DP + walk launches for {len(ap_items)} align_pairs "
-          "items in both cigar forms", flush=True)
-    return score_launches
+          "items in both cigar forms"
+          + (f"; launches by card {json.dumps(by_card)}"
+             if mesh.size > 1 else ""), flush=True)
+    return {"outputs": outs, "score_launches": score_launches,
+            "by_card": by_card}
+
+
+def same_outputs(a, b):
+    """The names of the dist_components outputs that differ between two
+    runs, compared bit for bit (arrays, numbers, dicts of them, lists)."""
+    def eq(x, y):
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            return np.array_equal(x, y) and np.asarray(x).dtype == \
+                np.asarray(y).dtype
+        if isinstance(x, dict):
+            return isinstance(y, dict) and set(x) == set(y) and all(
+                eq(x[k], y[k]) for k in x)
+        if isinstance(x, (list, tuple)):
+            return isinstance(y, (list, tuple)) and len(x) == len(y) and all(
+                eq(u, v) for u, v in zip(x, y))
+        return x == y
+    return [k for k in a if not eq(a[k], b[k])]
 
 
 def cli_argv(inputs, out, threads, coverage, extra=(), cli_device="cuda"):
@@ -997,12 +1079,15 @@ def cli_argv(inputs, out, threads, coverage, extra=(), cli_device="cuda"):
 
 
 def run_cli(device, inputs, out, threads, coverage, extra=(),
-            cli_device="cuda"):
+            cli_device="cuda", mesh_devices=1):
     """One run of the port's CLI (--device cli_device) with every launch
     count set to 0 just before it.  Returns the result, the kernels' launch
     counts (and, under "shapes", launches by shape and the bytes the mesh
     runner copied back from the card), the vote and depth-reduction device
-    counts, wall seconds and peak device bytes."""
+    counts, wall seconds and peak device bytes.  `shapes` also holds
+    "by_card", each kernel's launches and the vote's calls by card, and
+    "peak_by_card", the peak device bytes of cards 0 .. mesh_devices - 1
+    (the cards of a --mesh_devices run)."""
     import torch
     from telr_tpu_torch import cli
     from telr_tpu_torch.assembly.device_vote import vote_many
@@ -1010,10 +1095,12 @@ def run_cli(device, inputs, out, threads, coverage, extra=(),
     from telr_tpu_torch.dist.mesh import make_mesh
     from telr_tpu_torch.kernels import hopper_dp
     from telr_tpu_torch.kernels import hopper_wavefront as hw
+    from telr_tpu_torch.tools.bench_pipeline import (kernel_launches_by_card,
+                                                     reset_launches)
     from telr_tpu_torch.utils import hoststats
     argv = cli_argv(inputs, out, threads, coverage, extra, cli_device)
-    # the runner of the one-card mesh the CLI builds (one per equal mesh)
-    runner = sharded_dp_runner(make_mesh(1, device="cuda"))
+    # the runner of the mesh the CLI builds (one runner per equal mesh)
+    runner = sharded_dp_runner(make_mesh(mesh_devices, device="cuda"))
     # run_pipeline's logging.basicConfig opens this run's TELR.log only when
     # the root logger has no handler left from an earlier run
     for h in logging.root.handlers[:]:
@@ -1021,19 +1108,20 @@ def run_cli(device, inputs, out, threads, coverage, extra=(),
         h.close()
     # ... and its alignment breakdown reads the spans since the last reset
     hoststats.reset()
-    hw.wavefront_dp.launches = 0
-    hw.wavefront_walk.launches = 0
-    hopper_dp.rowband_dp.launches = 0
-    hopper_dp.rowband_walk.launches = 0
+    reset_launches()
     hw.wavefront_dp.shapes.clear()
     hopper_dp.rowband_dp.shapes.clear()
     runner.bytes_to_host = 0
     vote_many.device_calls.clear()
+    vote_many.card_calls.clear()
     mesh_coverage.device_calls.clear()
-    torch.cuda.reset_peak_memory_stats(device)
+    cards = range(mesh_devices)
+    for k in cards:
+        torch.cuda.reset_peak_memory_stats(k)
     t0 = time.perf_counter()
     res = cli.main(argv)
-    torch.cuda.synchronize(device)
+    for k in cards:
+        torch.cuda.synchronize(k)
     wall = time.perf_counter() - t0
     launches = {"wavefront_dp": hw.wavefront_dp.launches,
                 "wavefront_walk": hw.wavefront_walk.launches,
@@ -1041,7 +1129,11 @@ def run_cli(device, inputs, out, threads, coverage, extra=(),
                 "rowband_walk": hopper_dp.rowband_walk.launches,
                 "runner_bytes_to_host": runner.bytes_to_host}
     shapes = {"wavefront_dp": dict(hw.wavefront_dp.shapes),
-              "rowband_dp": dict(hopper_dp.rowband_dp.shapes)}
+              "rowband_dp": dict(hopper_dp.rowband_dp.shapes),
+              "by_card": kernel_launches_by_card(),
+              "peak_by_card": [torch.cuda.max_memory_allocated(k)
+                               for k in cards]}
+    shapes["by_card"]["vote"] = dict(vote_many.card_calls)
     return (res, launches, shapes, dict(vote_many.device_calls),
             dict(mesh_coverage.device_calls), wall,
             torch.cuda.max_memory_allocated(device))
@@ -1463,6 +1555,312 @@ def phase_multiprocess(size, coverage, n_ins, seed, threads, procs=2):
     return [r["launches"] for r in res["multi_process"]["ranks"]]
 
 
+def runner_overlap(cards, seed=11, per_card=512, reps=3):
+    """One batch of the mesh runner's DP and walk (per_card pairs of 2 kb x
+    2.5 kb a card, W = 512, GLOBAL) on a one-card mesh and on a mesh of
+    `cards` cards: the packed walks and scalars bit for bit, each mesh's
+    median wall over `reps` calls, then one more call of each under
+    torch.profiler for every card's busy window (the windows overlap unless
+    the runner serialises the cards).  Returns the record it prints."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from telr_tpu_torch.dist import exec as dexec
+    from telr_tpu_torch.dist.mesh import make_mesh
+    from telr_tpu_torch.kernels import dp
+    from telr_tpu_torch.tools.profile_report import card_windows, load_trace
+    rng = np.random.default_rng(seed)
+    B, LQ, LT, W = per_card * cards, 2048, 2560, 512
+    pairs = [_related(rng, LQ, LT, 200) for _ in range(B)]
+    q = np.stack([p[0] for p in pairs])
+    t = np.stack([p[1] for p in pairs])
+    off = np.broadcast_to(dp.make_band_offsets(LQ, LT, W), (B, LQ + 1)).copy()
+    qlen = np.full(B, LQ, np.int32)
+    tlen = np.full(B, LT, np.int32)
+    kw = dict(width=W, mode=dp.GLOBAL, params_tuple=dp.DPParams().tuple())
+    got, walls, rows = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="telr_smoke_") as work:
+        for n in (1, cards):
+            runner = dexec.sharded_dp_runner(make_mesh(n, device="cuda"))
+            got[n] = runner.walks(q, t, off, qlen, tlen, **kw)()  # warm-up
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                runner.walks(q, t, off, qlen, tlen, **kw)()
+                times.append(time.perf_counter() - t0)
+            walls[n] = sorted(times)[reps // 2]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                runner.walks(q, t, off, qlen, tlen, **kw)()
+            path = os.path.join(work, f"trace{n}.json")
+            prof.export_chrome_trace(path)
+            windows = card_windows(load_trace(path))
+            if windows:
+                t_min = min(w["start_us"] for w in windows.values())
+                rows[n] = {k: {"start_ms": (w["start_us"] - t_min) / 1e3,
+                               "end_ms": (w["end_us"] - t_min) / 1e3,
+                               "busy_ms": w["busy_s"] * 1e3,
+                               "events": w["events"]}
+                           for k, w in windows.items()}
+    if not all(np.array_equal(a, b) for a, b in zip(got[1], got[cards])):
+        raise AssertionError(f"the runner's walks differ between 1 and "
+                             f"{cards} cards")
+    overlap = None
+    if cards in rows:
+        overlap = max(r["start_ms"] for r in rows[cards].values()) \
+            < min(r["end_ms"] for r in rows[cards].values())
+    print(f"multicard: runner, {B} pairs of {LQ} x {LT} at W={W}: median "
+          f"wall of {reps} calls 1 card {walls[1] * 1e3:.1f} ms, {cards} "
+          f"cards {walls[cards] * 1e3:.1f} ms; walks bit-identical",
+          flush=True)
+    for n in (1, cards):
+        print(f"multicard: runner on {n} card(s), profiled call, busy "
+              "windows (ms from the first start): " + (", ".join(
+                  f"cuda:{k} {r['start_ms']:.2f}-{r['end_ms']:.2f} busy "
+                  f"{r['busy_ms']:.2f} ({r['events']} events)"
+                  for k, r in rows[n].items()) if n in rows else
+                  "not measured (no device event in the trace)"),
+              flush=True)
+    print(f"multicard: runner: every card's window overlaps every other's: "
+          f"{overlap}", flush=True)
+    return {"walls_s": walls, "windows": rows, "overlap": overlap}
+
+
+def phase_multicard_mesh(device, run, threads, coverage, counts):
+    """The CLI with --mesh_devices 1 and then each of `counts` (and
+    --wavefront off, so that stage 1 goes through the mesh runner) on the
+    pipeline phase's genome.  Fails unless each many-card run writes the
+    one-card run's nine files, launches rowband_dp and rowband_walk on every
+    card of its mesh, reduces depth on the card, votes on the card and
+    reaches F1 >= 0.8.  Returns each run's launches by card."""
+    outs, by_card = {}, {}
+    for n in (1,) + tuple(counts):
+        outs[n] = os.path.join(run["work"], f"mesh{n}")
+        res, launches, shapes, votes, depth, wall, _peak = run_cli(
+            device, run["inputs"], outs[n], threads, coverage,
+            ["--mesh_devices", str(n), "--wavefront", "off"],
+            mesh_devices=n)
+        score = run["score_calls"](res.final_report, run["truth"])
+        by_card[n] = shapes["by_card"]
+        print(f"multicard: --mesh_devices {n}: wall {wall:.1f} s, stage "
+              "seconds " + json.dumps(
+                  {k: round(v, 2) for k, v in res.stage_seconds.items()}),
+              flush=True)
+        print(f"multicard: --mesh_devices {n}: launches by card "
+              f"{json.dumps(shapes['by_card'])}, peak device memory by card "
+              + ", ".join(f"{b / 2**30:.2f}" for b in shapes["peak_by_card"])
+              + f" GiB, stage 1 copied {launches['runner_bytes_to_host']} "
+              f"bytes to the host, depth reductions {json.dumps(depth)}, "
+              f"F1 {score['f1']} (tp {score['tp']} fp {score['fp']} fn "
+              f"{score['fn']})", flush=True)
+        for k in ("rowband_dp", "rowband_walk"):
+            got = shapes["by_card"][k]
+            if sorted(got) != list(range(n)) or min(got.values()) == 0:
+                raise AssertionError(f"--mesh_devices {n}: {k} did not "
+                                     f"launch on every card: {got}")
+        if set(depth) != {"cuda"} or votes.get("cuda", 0) == 0:
+            raise AssertionError(f"--mesh_devices {n}: depth {depth}, vote "
+                                 f"{votes}: not on the card")
+        if "locus_redistribute" not in res.stage_seconds:
+            raise AssertionError(f"--mesh_devices {n}: no locus_redistribute "
+                                 "stage")
+        if score["f1"] < 0.8:
+            raise AssertionError(f"--mesh_devices {n}: F1 {score['f1']} < "
+                                 "0.8")
+        if n > 1:
+            differ = same_files(outs[1], outs[n])
+            if differ:
+                raise AssertionError(f"--mesh_devices {n} and 1 differ: "
+                                     f"{differ}")
+    print(f"multicard: --mesh_devices {', '.join(map(str, counts))}: "
+          f"{len(RUN_FILES)} files byte-identical to --mesh_devices 1",
+          flush=True)
+    return by_card
+
+
+def phase_multicard_runner(run, counts, timeout_s=900):
+    """run_pipeline_multiprocess through the multi-process tool at one
+    process and at each of `counts`, one rank a card (collectives over
+    NCCL), on the pipeline phase's genome; each rank takes the host's cores
+    over the ranks, at most 8.  Fails unless every run writes the one-process
+    run's seven files, every rank of a group ran over NCCL with its
+    collectives, wavefront kernels and vote on its own card only, and
+    F1 >= 0.8.  Returns each run's ranks."""
+    from telr_tpu_torch.tools import two_process_pipeline as tpp
+    cores = os.cpu_count() or 1
+    outs, runs = {}, {}
+    for n in (1,) + tuple(counts):
+        threads = max(1, min(8, cores // n))
+        outs[n] = os.path.join(run["work"], f"mp{n}")
+        t0 = time.perf_counter()
+        ranks = tpp.launch(n, run["inputs"], outs[n],
+                           os.path.join(run["work"], f"mp{n}_stats"),
+                           threads, "cuda", timeout_s)
+        launch_wall = time.perf_counter() - t0
+        runs[n] = ranks
+        with open(os.path.join(outs[n], "reads.telr.json")) as f:
+            score = run["score_calls"](json.load(f), run["truth"])
+        for r in ranks:
+            print(f"multicard: {n} processes, rank {r['rank']} on "
+                  f"{r['device']} ({r['backend']}, collectives on "
+                  f"{r['collective_device']}): wall {r['wall_s']:.1f} s, "
+                  "stage seconds " + json.dumps(
+                      {k: round(v, 2) for k, v in
+                       r["stage_seconds"].items()}), flush=True)
+            print(f"multicard: {n} processes, rank {r['rank']}: launches by "
+                  f"card {json.dumps(r['launches_by_card'])}, vote calls by "
+                  f"card {json.dumps(r['vote_calls_by_card'])}, peak device "
+                  f"memory {r['peak_device_bytes'] / 2**30:.2f} GiB",
+                  flush=True)
+        print(f"multicard: {n} processes, {threads} threads each: wall "
+              f"{ranks[0]['wall_s']:.1f} s ({launch_wall:.1f} s with the "
+              f"processes' start), F1 {score['f1']} (tp {score['tp']} fp "
+              f"{score['fp']} fn {score['fn']})", flush=True)
+        if score["f1"] < 0.8:
+            raise AssertionError(f"{n} processes: F1 {score['f1']} < 0.8")
+        for r in ranks:
+            own = str(r["rank"]) if n > 1 else str(
+                int(r["device"].partition(":")[2] or 0))
+            if n > 1 and (r["backend"] != "nccl"
+                          or r["device"] != f"cuda:{r['rank']}"
+                          or r["collective_device"] != r["device"]):
+                raise AssertionError(f"{n} processes: rank {r['rank']} ran "
+                                     f"on {r['device']} over {r['backend']}"
+                                     f" ({r['collective_device']})")
+            for k in ("wavefront_dp", "wavefront_walk"):
+                got = r["launches_by_card"][k]
+                if list(got) != [own] or got[own] == 0:
+                    raise AssertionError(f"{n} processes: rank {r['rank']}'s "
+                                         f"{k} launches by card: {got}")
+            if list(r["vote_calls_by_card"]) != [own]:
+                raise AssertionError(f"{n} processes: rank {r['rank']}'s "
+                                     "vote calls by card: "
+                                     f"{r['vote_calls_by_card']}")
+        if n > 1:
+            differ = tpp._compare_dirs(outs[1], outs[n])
+            if differ:
+                raise AssertionError(f"{n} processes and 1 differ: {differ}")
+    print(f"multicard: the runner at {', '.join(map(str, counts))} "
+          "processes over NCCL wrote the one-process run's files byte for "
+          "byte", flush=True)
+    return runs
+
+
+def phase_multicard_exchange(procs):
+    """tools/exchange_bench.py at `procs` ranks, one a card: the payload
+    and byte exchanges over gloo, then over NCCL, on the same seeded
+    inputs (90 Mb of read codes, 16 MB of blobs).  Fails unless every rank
+    ran over the backend asked for (NCCL's collectives on its own card),
+    both received exactly what the owner rule routes to them, and the two
+    backends' digests agree.  Returns both records."""
+    from telr_tpu_torch.tools import exchange_bench
+    res = {}
+    for backend in ("gloo", "nccl"):
+        res[backend] = rec = exchange_bench.run(procs, backend, "cuda",
+                                                timeout_s=300)
+        for r in rec["ranks"]:
+            want = f"cuda:{r['rank']}" if backend == "nccl" else "cpu"
+            if r["backend"] != backend or r["collective_device"] != want:
+                raise AssertionError(f"exchange over {backend}: rank "
+                                     f"{r['rank']} ran over {r['backend']} "
+                                     f"on {r['collective_device']}")
+        print(f"multicard: exchange at {procs} ranks over {backend}: "
+              "payloads " + ", ".join(
+                  f"{x:.4f}" for x in rec["payloads_seconds"])
+              + f" s ({rec['payload_bytes']} bytes of codes, "
+              f"{rec['payloads_wire_bytes']} on the wire), byte blobs "
+              + ", ".join(f"{x:.4f}" for x in rec["bytes_seconds"])
+              + f" s ({rec['blob_bytes']} bytes, {rec['bytes_wire_bytes']} "
+              "on the wire), slowest rank per rep", flush=True)
+    if res["gloo"]["digests"] != res["nccl"]["digests"]:
+        raise AssertionError("NCCL's received items differ from gloo's")
+    print(f"multicard: exchange: NCCL's received items equal gloo's on all "
+          f"{procs} ranks", flush=True)
+    return res
+
+
+def phase_multicard(device, size, coverage, n_ins, seed, threads):
+    """The multi-card half on every card torch sees (at least two): the
+    mesh components on a (2, 2) mesh (a (1, 2) one on two or three cards)
+    against a one-card mesh, the runner's overlap across the cards, the
+    payload exchange at one rank a card over NCCL against gloo, the runner
+    at one rank a card over NCCL against one process, and the CLI at
+    --mesh_devices 2 and 4 (as many as there are cards) against 1, all on
+    the pipeline phase's genome.  Returns the summary it prints."""
+    import torch
+    from telr_tpu_torch.dist.mesh import make_mesh
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise AssertionError(f"the multicard phase needs two or more cards; "
+                             f"torch sees {cards}")
+    counts = tuple(c for c in (2, 4) if c <= cards)
+    clock = [time.perf_counter()]
+    failed = []
+
+    def part(what, fn, *args):
+        """fn(*args), timed; a failure is printed and kept, and the parts
+        after it still run (the phase fails at its end)."""
+        try:
+            return fn(*args)
+        except Exception as e:   # noqa: BLE001 - reported, then re-raised
+            import traceback
+            traceback.print_exc()
+            failed.append(f"{what}: {type(e).__name__}: {e}")
+            return None
+        finally:
+            now = time.perf_counter()
+            print(f"multicard: {what} took {now - clock[0]:.1f} s",
+                  flush=True)
+            clock[0] = now
+
+    grid = make_mesh(4 if cards >= 4 else 2, loci_parallel=2, device="cuda")
+
+    def components():
+        one = dist_components(make_mesh(1, device=device))
+        many = dist_components(grid)
+        differ = same_outputs(one["outputs"], many["outputs"])
+        if differ:
+            raise AssertionError(f"{grid} differs from one card: {differ}")
+        print(f"multicard: {grid}: every component bit-identical to the "
+              "one-card mesh's and to its host reference", flush=True)
+        return many["by_card"]
+
+    grid_by_card = part("the mesh components", components)
+    overlap = part("the runner's overlap", runner_overlap, cards)
+    exchange = part("the exchange", phase_multicard_exchange, cards)
+    with tempfile.TemporaryDirectory(prefix="telr_smoke_") as work:
+        t0 = time.perf_counter()
+        inputs, truth, n_reads, n_bases, score_calls = simulate(
+            work, size, coverage, n_ins, seed)
+        print(f"multicard: simulated {size / 1e6:g} Mb at {coverage}x, "
+              f"{len(truth)} insertions, {n_reads} reads "
+              f"({n_bases / 1e6:.1f} Mb) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        run = {"work": work, "inputs": inputs, "truth": truth,
+               "score_calls": score_calls}
+        runner_runs = part("the runner at " + ", ".join(
+            map(str, (1,) + counts)) + " processes", phase_multicard_runner,
+            run, counts, max(300, size // 5000))
+        mesh_by_card = part("the CLI at --mesh_devices " + ", ".join(
+            map(str, (1,) + counts)), phase_multicard_mesh, device, run,
+            threads, coverage, counts)
+    if failed:
+        raise AssertionError("multicard: " + " | ".join(failed))
+    return {
+        "cards": cards, "grid": str(grid),
+        "grid_launches_by_card": grid_by_card,
+        "runner_overlap": overlap,
+        "exchange": {b: {k: r[k] for k in (
+            "payloads_seconds", "bytes_seconds", "payload_bytes",
+            "payloads_wire_bytes", "blob_bytes", "bytes_wire_bytes")}
+            for b, r in exchange.items()},
+        "mp": {n: [{"rank": r["rank"], "device": r["device"],
+                    "backend": r["backend"], "wall_s": r["wall_s"],
+                    "launches_by_card": r["launches_by_card"],
+                    "peak_device_bytes": r["peak_device_bytes"]}
+                   for r in ranks] for n, ranks in runner_runs.items()},
+        "mesh_launches_by_card": mesh_by_card}
+
+
 def phase_profile(device, coverage, n_ins, seed, threads, size=300_000):
     """The CLI with --profile_dir at 300 kb, then
     telr_tpu_torch/tools/profile_report.py on its trace: per-stage device
@@ -1732,7 +2130,9 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of the phases after the "
                          "build, for debugging; a partial run prints no "
-                         "summary and no ok line")
+                         "summary and no ok line.  \"multicard\" alone "
+                         "runs the multi-card half (two or more cards) and "
+                         "prints its summary and the ok line")
     args = ap.parse_args(argv)
 
     import torch
@@ -1746,13 +2146,15 @@ def main(argv=None):
     nvcc = subprocess.run([cuda_lib._nvcc(), "--version"], check=True,
                           capture_output=True, text=True).stdout
     print("probe: " + nvcc.strip().splitlines()[-1])
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], check=True,
-                         capture_output=True, text=True
-                         ).stdout.strip().splitlines()[0]
+    smi_lines = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                "--format=csv,noheader"], check=True,
+                               capture_output=True, text=True
+                               ).stdout.strip().splitlines()
+    smi = smi_lines[0]
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(device)
-    print(f"probe: {kind} ({smi}), {torch.cuda.device_count()} device(s)",
+    print(f"probe: {kind} ({'; '.join(smi_lines)}), "
+          f"{torch.cuda.device_count()} device(s)",
           flush=True)
 
     t0 = time.perf_counter()
@@ -1764,8 +2166,9 @@ def main(argv=None):
     sys.stdout.flush()
 
     phases = set(args.phases.split(","))
-    if not phases <= set(PHASES):
-        sys.exit(f"chip_smoke: unknown phases {sorted(phases - set(PHASES))}")
+    known = set(PHASES) | set(EXTRA_PHASES)
+    if not phases <= known:
+        sys.exit(f"chip_smoke: unknown phases {sorted(phases - known)}")
     threads = min(8, os.cpu_count() or 1)
     clock = [time.perf_counter()]
 
@@ -1853,10 +2256,21 @@ def main(argv=None):
         if "bench" in phases:
             bench_rec = phase_bench()
             done("bench")
+        if "multicard" in phases:
+            multicard = phase_multicard(device, args.size, args.coverage,
+                                        args.n_ins, args.seed, threads)
+            done("multicard")
 
     for mod in ("jax", "telr_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")
+    if phases == {"multicard"}:
+        print(json.dumps({"multicard": multicard}))
+        print("; ".join(smi_lines))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     if phases != set(PHASES):
         print(f"partial run ({sorted(phases)}): no summary")
         return

@@ -311,6 +311,10 @@ def vote_many(items: Sequence[Tuple[np.ndarray, list]],
     dev = resolve(device)
     vote_many.device_calls[dev.type] = \
         vote_many.device_calls.get(dev.type, 0) + 1
+    if dev.type == "cuda":
+        card = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        vote_many.card_calls[card] = vote_many.card_calls.get(card, 0) + 1
 
     packed = [_PackedLocus(bb, alns) for bb, alns in items]
     groups: Dict[Tuple[int, int, int, int], List[int]] = {}
@@ -356,5 +360,7 @@ def vote_many(items: Sequence[Tuple[np.ndarray, list]],
     return results
 
 
-# calls per device type ("cuda", "cpu"), so a run can show where it voted
+# calls per device type ("cuda", "cpu"), so a run can show where it voted,
+# and the calls on a card by its index
 vote_many.device_calls = {}
+vote_many.card_calls = {}

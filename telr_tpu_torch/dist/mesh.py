@@ -16,14 +16,18 @@ shard is the CPU, which is how the tests run an n-shard mesh on one host.
 
 Several processes (dist/runner.py) join one torch.distributed process group
 through `init_distributed`; `process_mesh` is then the one-shard-per-process
-mesh of the whole group, and its collectives (dist/redistribute.py's `_mp`
-functions, the runner's object all-gather) move host tensors over gloo.
-Each rank's kernels run on its own card (utils/device.py::resolve).
+mesh of the whole group.  The group's backend follows the topology: NCCL
+where every rank of the host has a card of its own (each rank's collectives
+then move tensors on its card, `collective_device`), gloo on host tensors
+on the CPU and where ranks share a card.  Each rank's kernels run on card
+rank % cards (utils/device.py::resolve).
 """
 
 from __future__ import annotations
 
+import atexit
 import datetime
+import logging
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -35,33 +39,96 @@ LOCI_AXIS = "loci"
 # that died must end the run, never hang it
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=30)
 
+logger = logging.getLogger("telr_tpu.dist")
+
+
+def pick_backend(num_processes: int, device=None,
+                 backend: Optional[str] = None) -> str:
+    """The backend of a group of `num_processes` ranks, all on this host.
+
+    backend=None follows the topology: "nccl" when the group's device is a
+    card (device None or "cuda", and a card is there) and every rank has a
+    card of its own; "gloo" on the CPU (device="cpu", or no card with
+    device None) and where ranks would share a card.  An explicit backend
+    is taken as asked; "nccl" without a card for every rank raises."""
+    import torch
+    if backend not in (None, "gloo", "nccl"):
+        raise ValueError(f"unknown backend {backend!r}; the port runs its "
+                         "collectives over gloo or nccl")
+    if backend == "gloo":
+        return backend
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if backend == "nccl":
+        if on_cpu or cards == 0:
+            raise RuntimeError("backend=\"nccl\" needs a CUDA card for every "
+                               "rank; this host has none")
+        if num_processes > cards:
+            raise RuntimeError(f"backend=\"nccl\" needs a card for every "
+                               f"rank: {num_processes} ranks, {cards} cards")
+        return backend
+    if device is not None and not on_cpu and cards == 0:
+        raise RuntimeError(
+            f"no CUDA card found for device={device!r}; to run on the CPU "
+            "ask for it: device=\"cpu\"")
+    return "nccl" if not on_cpu and 0 < num_processes <= cards else "gloo"
+
 
 def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
-                     backend: str = "gloo",
-                     timeout: datetime.timedelta = DEFAULT_TIMEOUT) -> None:
-    """Join the torch.distributed process group of `num_processes` ranks
-    whose rank 0 listens at `coordinator` ("host:port"); a no-op for a
-    single process.  Collectives go over gloo on host tensors, whatever
-    device the rank's kernels use."""
-    if backend == "nccl":
-        raise NotImplementedError(
-            "NCCL collectives are not ported: they need two or more cards "
-            "(ROADMAP, queue 1, the item \"NCCL across >= 2 cards\"); use "
-            "backend=\"gloo\"")
-    if backend != "gloo":
-        raise ValueError(f"unknown backend {backend!r}; the port runs its "
-                         "collectives over gloo")
-    if not num_processes or num_processes <= 1:
+                     backend: Optional[str] = None,
+                     timeout: datetime.timedelta = DEFAULT_TIMEOUT,
+                     device=None) -> None:
+    """Join the torch.distributed process group of `num_processes` ranks,
+    all on this host, whose rank 0 listens at `coordinator` ("host:port");
+    a no-op for a single process.  The backend is `pick_backend`'s for the
+    group's `device` (None: the card when there is one).  Under NCCL each
+    rank first takes card rank % cards as its current device, where its
+    collectives run; a failed NCCL start or collective ends the run, with
+    no retry over gloo."""
+    n = num_processes or 1
+    backend = pick_backend(n, device, backend)
+    if n <= 1:
         return
     if coordinator is None or process_id is None:
         raise ValueError("a process group of several ranks needs the "
                          "coordinator's address and this process' rank")
+    import torch
     import torch.distributed as dist
+    kwargs = {}
+    card = None
+    if backend == "nccl":
+        card = torch.device("cuda", process_id % torch.cuda.device_count())
+        torch.cuda.set_device(card)
+        kwargs["device_id"] = card
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id,
-                            timeout=timeout)
+                            timeout=timeout, **kwargs)
+    # leave the group while the interpreter is whole: a group torn down in
+    # its finalisation can abort the process (seen under gloo on a loaded
+    # host: "terminate called without an active exception")
+    atexit.register(_leave_group)
+    logger.info("rank %d of %d: collectives over %s%s", process_id,
+                num_processes, backend,
+                f" on {card}" if card is not None else " on host tensors")
+
+
+def _leave_group() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def collective_device():
+    """Where this rank's collective tensors live: its current card under
+    NCCL, the host under gloo and without a process group."""
+    import torch
+    if _group_initialized():
+        import torch.distributed as dist
+        if dist.get_backend() == "nccl":
+            return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
 
 
 def _group_initialized() -> bool:

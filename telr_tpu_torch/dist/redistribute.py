@@ -15,7 +15,8 @@ provides the test oracle.
 
 Across processes (redistribute_payloads_mp, exchange_bytes_mp) each rank
 packs only its own send row and one torch.distributed all_to_all_single per
-array and round moves the (src, dst) blocks, on host tensors over gloo.
+array and round moves the (src, dst) blocks: on the rank's card under NCCL,
+on host tensors under gloo (dist.mesh.collective_device).
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from telr_tpu_torch.dist.mesh import (READS_AXIS, Mesh, process_count,
-                                      process_index)
+from telr_tpu_torch.dist.mesh import (READS_AXIS, Mesh, collective_device,
+                                      process_count, process_index)
 
 
 def owner_of(locus_id: int, n_shards: int) -> int:
@@ -220,13 +221,21 @@ def _pack_local_row(
 
 def _exchange_row(row: np.ndarray) -> np.ndarray:
     """All-to-all of this process' (1, S, ...) send row over the process
-    group: returns (1, S, ...) where [0, src] is what src sent here."""
+    group, on the collective device: returns (1, S, ...) where [0, src] is
+    what src sent here."""
     import torch
     import torch.distributed as dist
-    send = torch.from_numpy(np.ascontiguousarray(row[0]))
+    send = torch.from_numpy(np.ascontiguousarray(row[0])).to(
+        collective_device())
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send)
-    return recv.numpy()[None]
+    _exchange_row.bytes += send.numel() * send.element_size()
+    return recv.cpu().numpy()[None]
+
+
+# the bytes this process' send rows have put on the wire (a measure for
+# tools/exchange_bench.py; set it to 0 before what it measures)
+_exchange_row.bytes = 0
 
 
 def redistribute_payloads_mp(
@@ -260,9 +269,11 @@ def redistribute_payloads_mp(
     if n_procs > 1:
         import torch
         import torch.distributed as dist
-        parts = [torch.zeros(2, dtype=torch.int64) for _ in range(n_procs)]
-        dist.all_gather(parts, torch.from_numpy(local_max))
-        gmax = torch.stack(parts).numpy().max(axis=0)
+        dev = collective_device()
+        parts = [torch.zeros(2, dtype=torch.int64, device=dev)
+                 for _ in range(n_procs)]
+        dist.all_gather(parts, torch.from_numpy(local_max).to(dev))
+        gmax = torch.stack(parts).cpu().numpy().max(axis=0)
     else:
         gmax = local_max
     l_pad = 1 << max(7, (int(gmax[0]) - 1).bit_length())

@@ -22,7 +22,8 @@ Determinism: signatures and alignments are sorted canonically after each
 gather, so output is bit-identical to the single-process run of this same
 flow (telr_tpu_torch/tools/two_process_pipeline.py asserts it).
 
-Collectives go through torch.distributed over gloo on host tensors
+Collectives go through torch.distributed: over NCCL on each rank's card
+where every rank has a card of its own, else over gloo on host tensors
 (dist/mesh.py::init_distributed); each rank's stage-1 mapping and assembly
 polish rounds run on its own device (utils/device.py::resolve)."""
 
@@ -42,7 +43,8 @@ logger = logging.getLogger("telr_tpu.dist")
 
 def _allgather_obj(obj):
     """All-gather one pickleable object per process; returns the list of
-    every process' object, in process order."""
+    every process' object, in process order.  Under NCCL the pickled bytes
+    travel on the current card, which init_distributed set to the rank's."""
     from telr_tpu_torch.dist.mesh import process_count
     n = process_count()
     if n == 1:

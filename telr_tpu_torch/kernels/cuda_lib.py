@@ -149,3 +149,11 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaError_t {rc}")
+
+
+def count_launch(wrapper, dev) -> None:
+    """One launch of `wrapper`'s kernel on card `dev` (a CUDA tensor's
+    device, which always has its index): its `launches`, and its `cards`,
+    the launches by card index."""
+    wrapper.launches += 1
+    wrapper.cards[dev.index] = wrapper.cards.get(dev.index, 0) + 1

@@ -20,8 +20,8 @@ B x Lq x W direction bytes.
 Each wrapper runs its plain PyTorch version below when handed CPU tensors
 (the CPU tests hold them against the JAX package) and launches its kernel,
 or raises, for CUDA tensors; each counts its CUDA launches in a `launches`
-attribute.  The kernels are built at first launch (kernels/cuda_lib.py),
-never at import.
+attribute, and by card index in `cards`.  The kernels are built at first
+launch (kernels/cuda_lib.py), never at import.
 """
 
 from __future__ import annotations
@@ -118,7 +118,7 @@ def rowband_dp(q, t, off, qlen, tlen, *, width: int, mode: int,
             ma, mi, go, ge, amb, gscore.data_ptr(), best.data_ptr(), *ptrs,
             stream)
     cuda_lib.check(rc, "rowband_dp")
-    rowband_dp.launches += 1
+    cuda_lib.count_launch(rowband_dp, dev)
     key = (width, Lq, t.shape[1], mode, bool(tb), B)
     rowband_dp.shapes[key] = rowband_dp.shapes.get(key, 0) + 1
     if tb:
@@ -127,6 +127,7 @@ def rowband_dp(q, t, off, qlen, tlen, *, width: int, mode: int,
 
 
 rowband_dp.launches = 0
+rowband_dp.cards = {}    # CUDA launches by card index
 rowband_dp.shapes = {}   # CUDA launches by (width, Lq, Lt, mode, tb, pairs)
 
 
@@ -322,11 +323,12 @@ def rowband_walk(dirs, off, qlen, tlen, gscore, best, besti, bestp, *,
             besti.data_ptr(), bestp.data_ptr(), B, Lq, W, S_pad, mode,
             packed.data_ptr(), small.data_ptr(), stream)
     cuda_lib.check(rc, "rowband_walk")
-    rowband_walk.launches += 1
+    cuda_lib.count_launch(rowband_walk, dev)
     return packed, small
 
 
 rowband_walk.launches = 0
+rowband_walk.cards = {}
 
 
 def _rowband_walk_plain(dirs, off, qlen, tlen, gscore, best, besti, bestp,

@@ -16,7 +16,8 @@ The counterpart of telr_tpu/kernels/pallas_wavefront.py.  One round of
 Each kernel wrapper runs its plain PyTorch version when handed CPU tensors
 (the CPU tests hold both against the JAX package) and launches the CUDA
 kernel, or raises, for CUDA tensors.  Each counts its CUDA launches in a
-`launches` attribute (wavefront_dp also by shape, in `shapes`).  The kernels
+`launches` attribute, by card index in `cards` (wavefront_dp also by
+shape, in `shapes`).  The kernels
 are built at first launch
 (kernels/cuda_lib.py), never at import.
 """
@@ -214,7 +215,7 @@ def wavefront_dp(meta, init, scal, n: int, width: int, mode: int,
             gscore.data_ptr(),
             best.data_ptr(), *ptrs, stream)
     cuda_lib.check(rc, "wavefront_dp")
-    wavefront_dp.launches += 1
+    cuda_lib.count_launch(wavefront_dp, dev)
     key = (width, mode, S_pad, n)
     wavefront_dp.shapes[key] = wavefront_dp.shapes.get(key, 0) + 1
     if tb:
@@ -223,6 +224,7 @@ def wavefront_dp(meta, init, scal, n: int, width: int, mode: int,
 
 
 wavefront_dp.launches = 0
+wavefront_dp.cards = {}    # CUDA launches by card index
 wavefront_dp.shapes = {}   # CUDA launches by (width, mode, S_pad, pairs)
 
 
@@ -387,11 +389,12 @@ def wavefront_walk(dirs, meta, scal, gscore, best, best_s, best_p,
             best_p.data_ptr(), n, S_pad, W, mode, packed.data_ptr(),
             small.data_ptr(), stream)
     cuda_lib.check(rc, "wavefront_walk")
-    wavefront_walk.launches += 1
+    cuda_lib.count_launch(wavefront_walk, dev)
     return packed, small
 
 
 wavefront_walk.launches = 0
+wavefront_walk.cards = {}
 
 
 def _wavefront_walk_plain(dirs, meta, scal, gscore, best, best_s, best_p,

@@ -193,9 +193,16 @@ def kernel_launches() -> dict:
     return {k.__name__: k.launches for k in _kernel_wrappers()}
 
 
+def kernel_launches_by_card() -> dict:
+    """Each hand-written kernel's CUDA launches by card index since
+    reset_launches()."""
+    return {k.__name__: dict(k.cards) for k in _kernel_wrappers()}
+
+
 def reset_launches() -> None:
     for k in _kernel_wrappers():
         k.launches = 0
+        k.cards.clear()
 
 
 class StageTap(logging.Handler):

@@ -112,6 +112,26 @@ def build_report(trace: dict, top: int = 5) -> dict:
                         trace.get("deviceProperties", [])]}
 
 
+def card_windows(trace: dict) -> dict:
+    """Each card's device work in the trace, by its index: the first start
+    and the last end (microseconds on the trace's clock, which all cards
+    share), the busy seconds and the count of kernels, copies and sets."""
+    out: dict = {}
+    for e in trace.get("traceEvents", []):
+        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
+            continue
+        card = int(e.get("args", {}).get("device", -1))
+        t0 = float(e["ts"])
+        t1 = t0 + float(e.get("dur", 0))
+        w = out.setdefault(card, {"start_us": t0, "end_us": t1,
+                                  "busy_s": 0.0, "events": 0})
+        w["start_us"] = min(w["start_us"], t0)
+        w["end_us"] = max(w["end_us"], t1)
+        w["busy_s"] += (t1 - t0) / 1e6
+        w["events"] += 1
+    return dict(sorted(out.items()))
+
+
 def report(path: str, top: int = 5) -> dict:
     """build_report on the trace at `path` (a file or a --profile_dir)."""
     trace_path = find_trace(path)

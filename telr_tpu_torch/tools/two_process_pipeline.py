@@ -4,15 +4,16 @@ scaling.
 Runs telr_tpu_torch.dist.runner.run_pipeline_multiprocess
 
   1) as ONE process, then
-  2) as --procs processes (torch.distributed over gloo on localhost), each
-     loading ONLY its crc32 read shard, with the same thread budget each;
-     rank r runs its kernels on card r % cards (ranks share a card when
-     there are fewer cards than ranks), or with --device cpu the kernels'
-     plain versions on the CPU,
+  2) as --procs processes (torch.distributed on localhost), each loading
+     ONLY its crc32 read shard, with the same thread budget each; rank r
+     runs its kernels on card r % cards, and the collectives go over NCCL
+     on the ranks' cards when every rank has a card of its own, else over
+     gloo on host tensors (ranks sharing a card; --device cpu, where the
+     kernels' plain versions run on the CPU),
 
 byte-compares every output file of the two runs, and writes a JSON with
-both runs' stage seconds and walls, T1 / (P * T2), and each rank's kernel
-launches, vote calls and peak device memory.  A rank that fails or outlives
+both runs' stage seconds and walls, T1 / (P * T2), and each rank's backend,
+kernel launches (also by card), vote calls and peak device memory.  A rank that fails or outlives
 --timeout ends the run with an error after every worker is killed.
 
 Dataset: the FASTA files given with --inputs, or a genome simulated with the
@@ -68,25 +69,39 @@ def worker(nprocs: int, pid: int, port: int, reads_fa: str, ref_fa: str,
     ensure_forkserver()   # before gloo and CUDA start threads
     import datetime
 
+    import logging
+    handler = logging.StreamHandler()
+    handler.setFormatter(logging.Formatter("%(name)s: %(message)s"))
+    dist_log = logging.getLogger("telr_tpu.dist")
+    dist_log.addHandler(handler)
+    dist_log.setLevel(logging.INFO)
+
     from telr_tpu_torch.dist.mesh import init_distributed
     init_distributed(f"localhost:{port}", nprocs, pid,
-                     timeout=datetime.timedelta(seconds=timeout_s))
+                     timeout=datetime.timedelta(seconds=timeout_s),
+                     device="cpu" if device == "cpu" else None)
     import torch
 
     from telr_tpu_torch.assembly.device_vote import vote_many
     from telr_tpu_torch.cli import _resolve_wavefront
     from telr_tpu_torch.config import SVConfig, TELRConfig
+    from telr_tpu_torch.dist.mesh import collective_device
     from telr_tpu_torch.dist.runner import run_pipeline_multiprocess
     from telr_tpu_torch.tools.bench_pipeline import (kernel_launches,
+                                                     kernel_launches_by_card,
                                                      reset_launches)
     from telr_tpu_torch.utils.device import resolve
 
     dev = resolve("cpu" if device == "cpu" else None)
+    backend = (torch.distributed.get_backend() if nprocs > 1 else None)
+    dist_log.info("rank %d of %d: kernels on %s, collectives on %s (%s)",
+                  pid, nprocs, dev, collective_device(), backend)
     use_wf, wf_stages = _resolve_wavefront("auto", device=dev.type)
     cfg = TELRConfig(sv=SVConfig(min_support=MIN_SUPPORT), threads=threads,
                      use_wavefront=use_wf, wavefront_stages=wf_stages)
     reset_launches()
     vote_many.device_calls.clear()
+    vote_many.card_calls.clear()
     if dev.type == "cuda":
         if dev.index is not None:
             torch.cuda.set_device(dev)
@@ -102,8 +117,11 @@ def worker(nprocs: int, pid: int, port: int, reads_fa: str, ref_fa: str,
         "stage_seconds": stage_s, "device": str(dev),
         "device_name": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
+        "backend": backend, "collective_device": str(collective_device()),
         "launches": kernel_launches(),
+        "launches_by_card": kernel_launches_by_card(),
         "vote_calls": dict(vote_many.device_calls),
+        "vote_calls_by_card": dict(vote_many.card_calls),
         "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else None),
     }
@@ -237,8 +255,9 @@ def run(inputs, workdir: str, procs: int = 2, threads: int = 2,
         / (procs * runs[procs]["wall_s"]),
         "output_files": sorted(os.listdir(runs[1]["out_dir"])),
         "bit_identical": not mismatches, "mismatches": mismatches,
-        "backend": "torch.distributed gloo on localhost; each process parses "
-                   "only its crc32 shard of the reads",
+        "backend": f"torch.distributed {runs[procs]['ranks'][0]['backend']} "
+                   "on localhost; each process parses only its crc32 shard "
+                   "of the reads",
     }
 
 

@@ -70,16 +70,26 @@ def test_make_mesh_refuses_more_cards_than_there_are(monkeypatch):
     assert [str(d) for d in mesh.flat_devices()] == ["cuda:0", "cuda:1"]
 
 
-def test_init_distributed_is_not_ported():
-    """A single process stays a no-op, with no process group; NCCL is not
-    ported and names its ROADMAP item; no other backend is taken."""
+def test_init_distributed_is_not_ported(monkeypatch):
+    """A single process stays a no-op, with no process group; NCCL is taken
+    only where every rank has a card of its own: asked for without a card,
+    or with more ranks than cards, it raises before any group is made; no
+    backend but gloo and NCCL is taken.  (The name predates the NCCL path:
+    the test now holds where NCCL is refused.)"""
     tmesh.init_distributed()
     tmesh.init_distributed("localhost:1", 1, 0)
     assert not torch.distributed.is_initialized()
     assert (tmesh.process_index(), tmesh.process_count()) == (0, 1)
     assert tmesh.process_mesh("cpu").shape == {"reads": 1, "loci": 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="nccl.*none"):
         tmesh.init_distributed("localhost:1", 2, 0, backend="nccl")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="2 ranks, 1 cards"):
+        tmesh.init_distributed("localhost:1", 2, 0, backend="nccl")
+    assert not torch.distributed.is_initialized()
     with pytest.raises(ValueError, match="gloo"):
         tmesh.init_distributed("localhost:1", 2, 0, backend="mpi")
 

@@ -249,3 +249,17 @@ def test_mp_runs_write_what_the_jax_runner_writes(mp_runs):
     for pos, fam in truth:
         assert any(c["family"] == fam and abs(c["start"] - pos) < 200
                    for c in calls), (pos, fam)
+
+
+def test_mp_ranks_report_their_backend(mp_runs):
+    """Each rank of the two-process CPU run says it went over gloo with its
+    collectives on host tensors, and counts no launch on any card; the
+    one-process run joined no group."""
+    result, _jax_out, _truth = mp_runs
+    for r in result["multi_process"]["ranks"]:
+        assert (r["backend"], r["collective_device"]) == ("gloo", "cpu")
+        assert all(c == {} for c in r["launches_by_card"].values())
+        assert r["vote_calls_by_card"] == {}
+    (one,) = result["one_process"]["ranks"]
+    assert one["backend"] is None and one["collective_device"] == "cpu"
+    assert "gloo" in result["backend"]
