@@ -27,6 +27,7 @@ from telr_tpu_torch.io.seqs import SeqDict, Sequence
 from telr_tpu_torch.kernels.mapper import Aligner
 from telr_tpu_torch.ops.intervals import Intervals
 from telr_tpu_torch.sv.detect import SVRecord
+from telr_tpu_torch.utils import hoststats
 
 
 def _realign_stores_batched(
@@ -65,6 +66,7 @@ class _MeshDepthView:
         return float(np.median(seg)) if seg.size else 0.0
 
 
+@hoststats.timed("af.depth")
 def _get_te_cov(store: AlignmentStore, cname: str, start: int, end: int,
                 cfg: AFConfig):
     te_5p = te_3p = None
@@ -87,6 +89,7 @@ def _get_te_cov(store: AlignmentStore, cname: str, start: int, end: int,
     return te_5p, te_3p
 
 
+@hoststats.timed("af.depth")
 def _get_flank_cov(store: AlignmentStore, cname: str, contig_len: int,
                    start: int, end: int, cfg: AFConfig):
     left = right = None
@@ -111,6 +114,7 @@ def _ratio(te_cov: Optional[float], flank_cov: Optional[float],
     return None
 
 
+@hoststats.timed("af")
 def estimate_af(
     records: List[SVRecord],
     contigs: SeqDict,

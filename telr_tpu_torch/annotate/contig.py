@@ -29,9 +29,11 @@ from telr_tpu_torch.io.seqs import SeqDict, Sequence, encode
 from telr_tpu_torch.kernels.mapper import Aligner
 from telr_tpu_torch.ops.intervals import Intervals, intersect_wao, merge_intervals
 from telr_tpu_torch.sv.detect import SVRecord
+from telr_tpu_torch.utils import hoststats
 from telr_tpu_torch.utils.evallog import LociEval
 
 
+@hoststats.timed("annotate")
 def annotate_contigs(
     contigs: SeqDict,
     passed_loci: Set[str],
@@ -169,6 +171,7 @@ def annotate_contigs(
     return annotation, te_seqs
 
 
+@hoststats.timed("annotate.families")
 def reannotate_families(
     annotation: Intervals,
     te_seqs: SeqDict,

@@ -189,6 +189,7 @@ def _ins_event_consensus(seqs: List[np.ndarray]) -> np.ndarray:
     if len(rep) > _INS_CONSENSUS_MAX or len(rep) == 0:
         return rep
     from telr_tpu_torch.kernels import dp
+    from telr_tpu_torch.utils import hoststats
     params = dp.DPParams()
     n = len(rep)
     votes = np.zeros((n, 5), dtype=np.int32)
@@ -197,7 +198,9 @@ def _ins_event_consensus(seqs: List[np.ndarray]) -> np.ndarray:
     nested: Dict[int, List[np.ndarray]] = {}
     items = [(s.astype(np.int8), rep, dp.GLOBAL, params, None, None)
              for s in seqs]
-    for s, res in zip(seqs, dp.align_pairs(items, cigar_arrays=True)):
+    with hoststats.timer("vote.ins_realign"):
+        aligned = dp.align_pairs(items, cigar_arrays=True)
+    for s, res in zip(seqs, aligned):
         qi = tj = 0
         ops, ls = dp.cigar_to_arrays(res["cigar"])
         for op, ln in zip(ops.tolist(), ls.tolist()):
@@ -307,6 +310,7 @@ def vote_many(items: Sequence[Tuple[np.ndarray, list]],
     is copied back.  Returns one consensus codes array per locus (same
     contract as consensus_vote per locus)."""
     import torch
+    from telr_tpu_torch.utils import hoststats
     from telr_tpu_torch.utils.device import resolve
     dev = resolve(device)
     vote_many.device_calls[dev.type] = \
@@ -316,48 +320,60 @@ def vote_many(items: Sequence[Tuple[np.ndarray, list]],
             else torch.cuda.current_device()
         vote_many.card_calls[card] = vote_many.card_calls.get(card, 0) + 1
 
-    packed = [_PackedLocus(bb, alns) for bb, alns in items]
-    groups: Dict[Tuple[int, int, int, int], List[int]] = {}
-    for i, p in enumerate(packed):
-        groups.setdefault(p.buckets(), []).append(i)
+    with hoststats.timer("vote.pack"):
+        packed = [_PackedLocus(bb, alns) for bb, alns in items]
+        groups: Dict[Tuple[int, int, int, int], List[int]] = {}
+        for i, p in enumerate(packed):
+            groups.setdefault(p.buckets(), []).append(i)
 
-    pending = []
-    for (a_b, r_b, q_b, n_b), all_idxs in groups.items():
-        step = max(1, _VOTE_ELEMS // (a_b * n_b))
-        for lo in range(0, len(all_idxs), step):
-            idxs = all_idxs[lo:lo + step]
-            k = len(idxs)
-            qcodes = np.zeros((k, a_b, q_b), dtype=np.int8)
-            opcode = np.full((k, a_b, r_b), OP_PAD, dtype=np.int8)
-            oplen = np.zeros((k, a_b, r_b), dtype=np.int32)
-            qstart = np.zeros((k, a_b), dtype=np.int32)
-            tstart = np.zeros((k, a_b), dtype=np.int32)
-            backbone = np.zeros((k, n_b), dtype=np.int8)
-            for s, i in enumerate(idxs):
-                p = packed[i]
-                a_n, r_n = p.opcode.shape
-                qcodes[s, :a_n, : p.qcodes.shape[1]] = p.qcodes
-                opcode[s, :a_n, :r_n] = p.opcode
-                oplen[s, :a_n, :r_n] = p.oplen
-                qstart[s, :a_n] = p.qstart
-                tstart[s, :a_n] = p.tstart
-                # padded alignment rows are all-OP_PAD -> label 6 everywhere
-                backbone[s, : p.n] = p.backbone
-            out = _vote_torch(*(torch.from_numpy(x).to(dev) for x in (
-                qcodes, opcode, oplen, qstart, tstart, backbone)))
-            pending.append((idxs, out))
+    # every call is enqueued before the first copy back; each call's host
+    # arrays (vote.stack) are let go once they are on the device
+    with hoststats.timer("vote.device"):
+        pending = []
+        for (a_b, r_b, q_b, n_b), all_idxs in groups.items():
+            step = max(1, _VOTE_ELEMS // (a_b * n_b))
+            for lo in range(0, len(all_idxs), step):
+                idxs = all_idxs[lo:lo + step]
+                with hoststats.timer("vote.stack"):
+                    arrays = _stack(packed, idxs, a_b, r_b, q_b, n_b)
+                pending.append((idxs, _vote_torch(
+                    *(torch.from_numpy(x).to(dev) for x in arrays))))
+        fetched = [(idxs, best.cpu().numpy(), keep.cpu().numpy(),
+                    cov.cpu().numpy())
+                   for idxs, (best, keep, cov, _delv) in pending]
 
     results: List[np.ndarray] = [None] * len(packed)  # type: ignore
-    for idxs, (best, keep, cov, _delv) in pending:
-        best = best.cpu().numpy()
-        keep = keep.cpu().numpy()
-        cov = cov.cpu().numpy()
-        for s, i in enumerate(idxs):
-            p = packed[i]
-            results[i] = finalize_consensus(
-                p.backbone, best[s, : p.n], keep[s, : p.n], cov[s, : p.n],
-                p.ins_seqs, p.n_reads, min_cov)
+    with hoststats.timer("vote.finalize"):
+        for idxs, best, keep, cov in fetched:
+            for s, i in enumerate(idxs):
+                p = packed[i]
+                results[i] = finalize_consensus(
+                    p.backbone, best[s, : p.n], keep[s, : p.n],
+                    cov[s, : p.n], p.ins_seqs, p.n_reads, min_cov)
     return results
+
+
+def _stack(packed, idxs, a_b: int, r_b: int, q_b: int, n_b: int):
+    """The padded (qcodes, opcode, oplen, qstart, tstart, backbone) arrays
+    of one vote call over the loci `idxs` of `packed`."""
+    k = len(idxs)
+    qcodes = np.zeros((k, a_b, q_b), dtype=np.int8)
+    opcode = np.full((k, a_b, r_b), OP_PAD, dtype=np.int8)
+    oplen = np.zeros((k, a_b, r_b), dtype=np.int32)
+    qstart = np.zeros((k, a_b), dtype=np.int32)
+    tstart = np.zeros((k, a_b), dtype=np.int32)
+    backbone = np.zeros((k, n_b), dtype=np.int8)
+    for s, i in enumerate(idxs):
+        p = packed[i]
+        a_n, r_n = p.opcode.shape
+        qcodes[s, :a_n, : p.qcodes.shape[1]] = p.qcodes
+        opcode[s, :a_n, :r_n] = p.opcode
+        oplen[s, :a_n, :r_n] = p.oplen
+        qstart[s, :a_n] = p.qstart
+        tstart[s, :a_n] = p.tstart
+        # padded alignment rows are all-OP_PAD -> label 6 everywhere
+        backbone[s, : p.n] = p.backbone
+    return qcodes, opcode, oplen, qstart, tstart, backbone
 
 
 # calls per device type ("cuda", "cpu"), so a run can show where it voted,

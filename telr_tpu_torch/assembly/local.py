@@ -28,6 +28,7 @@ from telr_tpu_torch.config import AlignPreset, AssemblyConfig
 from telr_tpu_torch.io.seqs import SeqDict, Sequence, encode, revcomp_codes
 from telr_tpu_torch.kernels.mapper import Aligner, Alignment
 from telr_tpu_torch.sv.detect import SVRecord
+from telr_tpu_torch.utils import hoststats
 from telr_tpu_torch.utils.evallog import LociEval
 
 
@@ -126,6 +127,7 @@ def collect_extra_voters(records: List[SVRecord], store,
     return out
 
 
+@hoststats.timed("assembly")
 def assemble_all(records: List[SVRecord], reads: SeqDict,
                  preset: AlignPreset, cfg: AssemblyConfig,
                  loci_eval: LociEval,
@@ -212,6 +214,7 @@ def _assemble_batch(items: List[Tuple[str, List[str], List[str], List[str]]],
         states.append(_State(locus_name, avail, extras, backbone))
 
     rounds = 1 + max(0, cfg.polish_iterations)
+    realigned = 0       # realign rounds run, the vote's and the POA's
     for _ in range(rounds):
         live = [st for st in states if st.active]
         if not live:
@@ -224,7 +227,10 @@ def _assemble_batch(items: List[Tuple[str, List[str], List[str], List[str]]],
             groups.append((aligner,
                            {rn: reads[rn].codes
                             for rn in st.avail + st.extras}))
-        results = map_batch_grouped(groups)
+        with hoststats.timer("assembly.realign", round=realigned,
+                             loci=len(live)):
+            results = map_batch_grouped(groups)
+        realigned += 1
         vote_items: List[Tuple[_State, list]] = []
         for st, result in zip(live, results):
             alns: List[Tuple[Alignment, np.ndarray]] = []
@@ -291,7 +297,11 @@ def _assemble_batch(items: List[Tuple[str, List[str], List[str], List[str]]],
                 groups.append((aligner,
                                {rn: reads[rn].codes
                                 for rn in st.avail + st.extras}))
-            results = map_batch_grouped(groups)
+            rnd, realigned = realigned, realigned + 1
+            with hoststats.timer("assembly.realign", round=rnd,
+                                 loci=len(live)):
+                results = map_batch_grouped(groups)
+                round_span = hoststats.current()
             poa_jobs = []   # (state, segs, c0s, c1s)
             for st, result in zip(live, results):
                 segs, c0s, c1s = [], [], []
@@ -320,12 +330,16 @@ def _assemble_batch(items: List[Tuple[str, List[str], List[str], List[str]]],
 
             def _refine(job):
                 st, segs, c0s, c1s = job
-                return st, _native.poa_consensus(
-                    st.consensus, segs, c0s, c1s, width=192,
-                    match=preset.match, mismatch=preset.mismatch,
-                    gap_open=preset.gap_open,
-                    gap_extend=preset.gap_extend,
-                    min_cov=2 if len(segs) > 2 else 1)
+                with hoststats.timer("assembly.poa", parent=round_span,
+                                     locus=st.name, segs=len(segs),
+                                     backbone_len=len(st.consensus),
+                                     round=rnd):
+                    return st, _native.poa_consensus(
+                        st.consensus, segs, c0s, c1s, width=192,
+                        match=preset.match, mismatch=preset.mismatch,
+                        gap_open=preset.gap_open,
+                        gap_extend=preset.gap_extend,
+                        min_cov=2 if len(segs) > 2 else 1)
 
             # the ctypes POA call releases the GIL — thread across loci
             import os as _os

@@ -513,23 +513,28 @@ def align_pairs(items, runner=None, want_cigar: bool = True,
                             cigar_arrays)
         return results
     run = runner if runner is not None else _native_dp()
+    # a batch on the native host engine is a `dp.host` span (its DP, its
+    # walks); the mesh runner's batches run on its devices
+    span = "dp.host" if runner is None else "dp.runner"
     for (mode, w, lq_b, lt_b, ptuple), jobs in groups.items():
         chunk = min(_MAX_BATCH, max(1, _MAX_BATCH_CELLS // (lq_b * w)))
         for c0 in range(0, len(jobs), chunk):
             part = jobs[c0:c0 + chunk]
             qb, tb, ob, ql, tl = _pack_batch(part, lq_b, lt_b)
-            dirs, gscore, best, besti, bestp = run(
-                qb, tb, ob, ql, tl, width=w, mode=mode,
-                params_tuple=ptuple)
-            dirs = np.asarray(dirs)
-            gscore = np.asarray(gscore)
-            best = np.asarray(best)
-            besti = np.asarray(besti)
-            bestp = np.asarray(bestp)
-            for r, (i, _q, _t, off_pad, lq, lt) in enumerate(part):
-                results[i] = _finish_pair(
-                    dirs[r], gscore[r], best[r], besti[r], bestp[r],
-                    off_pad, lq, lt, mode, want_cigar, cigar_arrays)
+            with hoststats.timer(span, pairs=len(part),
+                                 cells=int(ql.sum()) * w):
+                dirs, gscore, best, besti, bestp = run(
+                    qb, tb, ob, ql, tl, width=w, mode=mode,
+                    params_tuple=ptuple)
+                dirs = np.asarray(dirs)
+                gscore = np.asarray(gscore)
+                best = np.asarray(best)
+                besti = np.asarray(besti)
+                bestp = np.asarray(bestp)
+                for r, (i, _q, _t, off_pad, lq, lt) in enumerate(part):
+                    results[i] = _finish_pair(
+                        dirs[r], gscore[r], best[r], besti[r], bestp[r],
+                        off_pad, lq, lt, mode, want_cigar, cigar_arrays)
     return results
 
 
@@ -603,7 +608,7 @@ def _align_groups_walks(groups, results, runner, want_cigar: bool,
                 out["qstart"] = int(small[WALK_EI, r])
                 out["tstart"] = int(small[WALK_EJ, r])
             results[i] = out
-        hoststats.add("rowband_decode", time.perf_counter() - t0)
+        hoststats.add("rowband_decode", time.perf_counter() - t0, start=t0)
 
     pending = None
     for (mode, w, lq_b, lt_b, ptuple), jobs in groups.items():

@@ -509,7 +509,16 @@ def wavefront_align(
         cg = [guides[i] for i in sel] if guides is not None else None
         with hoststats.timer("wave_prep"):
             meta, init, scal = prepare_wavefront_batch(cp, width, cg)
-        with hoststats.timer("wave_launch"):
+        # the launch's work, read off its wire arrays (scal holds each
+        # pair's lq and lt): `steps` x `width` cells computed, one block a
+        # pair over its own lq + lt steps (csrc/wavefront_dp.cu), in a
+        # direction buffer of n x S_pad x width
+        s_pad = meta.shape[2]
+        steps = int(scal.reshape(-1, 8)[:len(sel), :2].sum())
+        with hoststats.timer("wave_launch", pairs=len(sel), steps=steps,
+                             width=width, S_pad=s_pad,
+                             useful_cells=steps * width,
+                             launched_cells=len(sel) * s_pad * width):
             meta = torch.from_numpy(meta).to(dev)
             init = torch.from_numpy(init).to(dev)
             scal = torch.from_numpy(scal).to(dev)
@@ -548,7 +557,7 @@ def wavefront_align(
                 "score": int(g[k]) if mode == GLOBAL else int(b[k]),
                 "cigar": cig, "qstart": ei, "tstart": ej,
                 "qend": int(si_a[k]), "tend": int(sj_a[k])}
-        hoststats.add("wave_decode", time.perf_counter() - t0)
+        hoststats.add("wave_decode", time.perf_counter() - t0, start=t0)
 
     # the next chunk's host prep overlaps the current chunk's kernels: the
     # launches return at once and only the copy back waits for the device

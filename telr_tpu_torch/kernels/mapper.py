@@ -25,6 +25,7 @@ from telr_tpu_torch.kernels import dp
 from telr_tpu_torch.kernels.chain import Chain, chain_anchors
 from telr_tpu_torch.kernels.index import MinimizerIndex
 from telr_tpu_torch.kernels.minimizer import minimizers
+from telr_tpu_torch.utils import hoststats
 
 
 @dataclasses.dataclass
@@ -79,8 +80,9 @@ class Aligner:
         # dist.mesh.Mesh: run the host-engine DP batches on the mesh's
         # devices instead, sharded over "reads"
         self.mesh = mesh
-        self.index = MinimizerIndex.build(targets, preset.k, preset.w,
-                                          max_occ=max_occ)
+        with hoststats.timer("aligner_index"):
+            self.index = MinimizerIndex.build(targets, preset.k, preset.w,
+                                              max_occ=max_occ)
         self._tcodes = {s.name: s.codes for s in targets}
 
     # ------------------------------------------------------------------
@@ -404,7 +406,6 @@ class Aligner:
             # chaining — numpy + native C++ in the workers); the device
             # DP dispatch stays in the parent, the one process that
             # touches CUDA
-            from telr_tpu_torch.utils import hoststats
             with hoststats.timer("plan_pool"):
                 plans = self._worker_pool(processes).plan(queries)
             return map_batch_grouped([(self, queries)],
@@ -415,8 +416,9 @@ class Aligner:
                 # without the native DP the worker path has no DP at all
                 or not native.has_banded_dp()):
             return self.map_batch(queries, max_hits=max_hits)
-        return self._worker_pool(processes).map_batch(queries,
-                                                      max_hits=max_hits)
+        with hoststats.timer("map_pool"):
+            return self._worker_pool(processes).map_batch(queries,
+                                                          max_hits=max_hits)
 
 
 _EXT_CHUNK = 512       # query bases per extension round
@@ -471,8 +473,8 @@ def _extend_chunked(ext_items, run_round):
     (q, t, params) chunk jobs to align_pair-style results (CPU batch or
     wavefront kernel launch)."""
     import time
-    from telr_tpu_torch.utils import hoststats
     t_start, t_rounds = time.perf_counter(), 0.0
+    t_host = t_start    # the start of the scheduler's current stretch
     n = len(ext_items)
     state = [{"qoff": 0, "toff": 0, "score": 0,
               "cigar": (np.zeros(0, np.uint8), np.zeros(0, np.int32)),
@@ -493,8 +495,10 @@ def _extend_chunked(ext_items, run_round):
         if not jobs:
             break
         t0 = time.perf_counter()
+        hoststats.record("ext_schedule", t_host, t0)
         results = run_round(jobs)
-        t_rounds += time.perf_counter() - t0
+        t_host = time.perf_counter()
+        t_rounds += t_host - t0
         nxt = []
         for i, res in zip(slots, results):
             s = state[i]
@@ -514,7 +518,9 @@ def _extend_chunked(ext_items, run_round):
             s["done"] = True
         pending = nxt
     # the scheduler's own host time: slicing the chunks, merging the cigars
-    hoststats.add("ext_schedule", time.perf_counter() - t_start - t_rounds)
+    t_end = time.perf_counter()
+    hoststats.record("ext_schedule", t_host, t_end)
+    hoststats.add("ext_schedule", t_end - t_start - t_rounds)
     return [{"score": s["score"], "cigar": s["cigar"], "qend": s["qoff"],
              "tend": s["toff"], "qstart": 0, "tstart": 0}
             for s in state]
@@ -566,7 +572,6 @@ def _dispatch_pieces(groups, jobs, piece_results, job_ids=None):
     wave_ext_device = None
     runner = None
     import time
-    from telr_tpu_torch.utils import hoststats
     t_collect = time.perf_counter()
     for ji in (range(len(jobs)) if job_ids is None else job_ids):
         (gi, *_x, pieces) = jobs[ji]
@@ -604,8 +609,15 @@ def _dispatch_pieces(groups, jobs, piece_results, job_ids=None):
                 else:
                     cpu_items.append((q, t, mode, params, width, None))
                     cpu_slots.append((ji, tag))
-    hoststats.add("map_collect", time.perf_counter() - t_collect)
-    if _wave_goes_to_host(wave_buckets, wave_ext_items):
+    hoststats.add("map_collect", time.perf_counter() - t_collect,
+                  start=t_collect)
+    to_host = _wave_goes_to_host(wave_buckets, wave_ext_items)
+    if hoststats.recording() and (wave_buckets or wave_ext_items):
+        # the size gate's side and the wavefront work it weighed
+        hoststats.annotate(side="host" if to_host else "card",
+                           wave_cells=_wave_cells(wave_buckets,
+                                                  wave_ext_items))
+    if to_host:
         for (ptuple, mode, _wave_w, _dev), items in wave_buckets.items():
             params = dp.DPParams(*ptuple)
             for (ji, tag, q, t, guide, width) in items:
@@ -687,7 +699,6 @@ def map_batch_grouped(
     band edge (band_margin 0 — the band likely clipped the optimal path),
     when the walk corrupts (geometry mismatch / band escape), or when the
     DP found no in-band path.  The retry re-runs the region piece only."""
-    from telr_tpu_torch.utils import hoststats
     jobs = []  # [group_idx, qname, codes, chain, s_id, st, primary,
     #            geom, pieces]
     with hoststats.timer("map_plan_pieces"):
@@ -773,12 +784,13 @@ def map_batch_grouped(
             raw_out[gi].append((qname, alns_by_job[ji]))
         return raw_out
 
-    for ji, (gi, qname, *_rest) in enumerate(jobs):
-        per_group[gi][qname].append(alns_by_job[ji])
-    return [
-        {qname: groups[gi][0]._postprocess(alns, max_hits)
-         for qname, alns in result.items()}
-        for gi, result in enumerate(per_group)]
+    with hoststats.timer("map_postprocess"):
+        for ji, (gi, qname, *_rest) in enumerate(jobs):
+            per_group[gi][qname].append(alns_by_job[ji])
+        return [
+            {qname: groups[gi][0]._postprocess(alns, max_hits)
+             for qname, alns in result.items()}
+            for gi, result in enumerate(per_group)]
 
 
 def _merge_cigar(a: List[Tuple[str, int]], b: List[Tuple[str, int]]

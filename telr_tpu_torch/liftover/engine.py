@@ -39,6 +39,7 @@ from telr_tpu_torch.config import ASM10, AlignPreset, LiftoverConfig
 from telr_tpu_torch.io.seqs import SeqDict
 from telr_tpu_torch.kernels.mapper import Aligner, Alignment
 from telr_tpu_torch.ops.intervals import Intervals, closest, merge_intervals
+from telr_tpu_torch.utils import hoststats
 
 
 # ---------------------------------------------------------------------------
@@ -459,6 +460,7 @@ def lift_annotation(
 # full liftover over all annotations + cross-locus dedup + summary
 # ---------------------------------------------------------------------------
 
+@hoststats.timed("liftover")
 def liftover(
     contigs: SeqDict,
     reference: SeqDict,

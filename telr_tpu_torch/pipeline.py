@@ -23,6 +23,7 @@ the mesh.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -45,6 +46,7 @@ from telr_tpu_torch.report.output import generate_output
 from telr_tpu_torch.sv.detect import SVRecord, detect_insertions
 from telr_tpu_torch.sv.filter import filter_te_candidates
 from telr_tpu_torch.sv.merge import merge_nearby_records
+from telr_tpu_torch.utils import hoststats
 from telr_tpu_torch.utils.checkpoint import Checkpointer
 from telr_tpu_torch.utils.evallog import LociEval
 
@@ -141,6 +143,10 @@ def _input_fingerprint(paths, config: TELRConfig) -> str:
 
 PROFILE_TRACE = "telr.trace.json.gz"
 STAGE_SPAN = "telr_stage:"
+# a RecordFunction entered at the profiler's start, with time.perf_counter
+# read inside it: it puts the program's spans on the trace's clock
+CLOCK_MARK = "telr:clock"
+SPAN_CAT = "telr_span"
 
 
 def _start_profiler(device):
@@ -158,17 +164,37 @@ def _start_profiler(device):
                                   with_stack=False, profile_memory=False,
                                   with_flops=False, with_modules=False)
     prof.start()
+    with torch._C._profiler._RecordFunctionFast(CLOCK_MARK):
+        prof.telr_clock = time.perf_counter()
     return prof
 
 
 def _stop_profiler(prof, profile_dir: str) -> Dict[str, float]:
-    """Stop the profiler and write its trace.  Returns each stage span's
-    seconds as the trace records them."""
+    """Stop the profiler and write its trace, with the spans the program
+    recorded meanwhile (utils/hoststats.py; the profiler saw those of the
+    main thread alone, without their attributes) added as "X" events of
+    category SPAN_CAT on the trace's clock: all but the stage spans, which
+    the trace holds as the profiler's own events.  Returns each stage
+    span's seconds as the trace records them."""
+    import gzip
+    import tempfile
     import torch
     prof.stop()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, PROFILE_TRACE)
-    prof.export_chrome_trace(path)
+    fd, raw = tempfile.mkstemp(suffix=".json", dir=profile_dir)
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(raw)
+        with open(raw) as f:
+            trace = json.load(f)
+    finally:
+        os.remove(raw)
+    trace["traceEvents"] += _span_events(
+        trace, prof.telr_clock, [s for s in hoststats.drain_spans()
+                                 if not s.name.startswith(STAGE_SPAN)])
+    with gzip.open(path, "wt") as f:
+        json.dump(trace, f)
     size = os.path.getsize(path)
     logger.info("profiler trace written to %s (%d bytes)", path, size)
     print(f"profiler trace: {path} ({size} bytes)")
@@ -176,6 +202,24 @@ def _stop_profiler(prof, profile_dir: str) -> Dict[str, float]:
     return {e.name()[len(STAGE_SPAN):]: e.duration_ns() / 1e9
             for e in prof.profiler.kineto_results.events()
             if e.device_type() == cpu and e.name().startswith(STAGE_SPAN)}
+
+
+def _span_events(trace: dict, clock: float, spans) -> List[dict]:
+    """The program's spans as chrome-trace "X" events, placed by the
+    CLOCK_MARK event: its start on the trace's clock is `clock` on
+    time.perf_counter's."""
+    marks = [float(e["ts"]) for e in trace.get("traceEvents", [])
+             if e.get("ph") == "X" and e.get("name") == CLOCK_MARK]
+    if not marks:
+        logger.warning("the profiler trace has no %s event: the program's "
+                       "spans are left out of it", CLOCK_MARK)
+        return []
+    pid = os.getpid()
+    return [{"ph": "X", "cat": SPAN_CAT, "name": s.name, "pid": pid,
+             "tid": s.tid, "ts": marks[0] + (s.t0 - clock) * 1e6,
+             "dur": (s.t1 - s.t0) * 1e6,
+             "args": dict(s.attrs, id=s.id, parent=s.parent)}
+            for s in spans]
 
 
 @dataclasses.dataclass
@@ -251,30 +295,20 @@ def run_pipeline(
     stage_seconds: Dict[str, float] = {}
     restored_stages: List[str] = []
 
+    @contextlib.contextmanager
     def timed(name):
-        class _T:
-            def __enter__(self):
-                logger.info("stage %s ...", name)
-                if prof is not None:
-                    # the stage's span in the profiler trace, so
-                    # tools/profile_report.py can attribute device time.
-                    # The C++ RecordFunction costs a few microseconds a
-                    # span where torch.profiler.record_function costs tens,
-                    # which a stage of a millisecond would show
-                    import torch
-                    self._span = torch._C._profiler._RecordFunctionFast(
-                        STAGE_SPAN + name)
-                    self._span.__enter__()
-                self.t0 = time.time()
-                return self
-
-            def __exit__(self, *a):
-                stage_seconds[name] = time.time() - self.t0
-                if prof is not None:
-                    self._span.__exit__(None, None, None)
-                logger.info("stage %s finished in %.2fs", name,
-                            stage_seconds[name])
-        return _T()
+        # the stage's span (hoststats: in the profiler's trace under
+        # --profile_dir), so tools/profile_report.py can attribute device
+        # time to it
+        logger.info("stage %s ...", name)
+        t0 = time.time()
+        try:
+            with hoststats.timer(STAGE_SPAN + name):
+                yield
+        finally:
+            stage_seconds[name] = time.time() - t0
+            logger.info("stage %s finished in %.2fs", name,
+                        stage_seconds[name])
 
     # pre-aligned input (BAM/SAM) skips stage 1a, mirroring the reference's
     # BAM path (TELR_input.py:299-305, telr.py:58-61); reads are
@@ -324,7 +358,6 @@ def run_pipeline(
             len(reads) / stage_seconds["alignment"],
             n_bases / 1e6 / stage_seconds["alignment"],
             len(reads), len(store))
-        from telr_tpu_torch.utils import hoststats
         logger.info("alignment breakdown: %s", hoststats.snapshot())
         hoststats.reset()
 

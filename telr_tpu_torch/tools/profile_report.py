@@ -10,8 +10,12 @@ and attributes every CUDA kernel, memcpy and memset the trace holds to the
 stage whose span holds the host call that issued it (matched by the
 profiler's correlation id; an event without one goes by its own start).
 Writes a JSON table: per stage its wall seconds, device seconds, the card's
-busy share, and its top kernels by time with their counts.  A trace taken
-with --device cpu has no device events: every stage then reads 0 s.
+busy share, and its top kernels by time with their counts; then the run's
+longest stretches in which the card ran nothing, each named by the innermost
+program span over it (the stage spans and the "telr_span" events the
+pipeline adds from utils/hoststats.py).  A trace taken with --device cpu has
+no device events: every stage then reads 0 s, and the whole run is one idle
+stretch.
 """
 
 from __future__ import annotations
@@ -30,6 +34,12 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 # device-side events, and the profiler's device-side copies of host spans
 HOST_SKIP = DEVICE_CATS + ("gpu_user_annotation",)
+# the program's own spans (pipeline.py SPAN_CAT), with their attributes
+SPAN_CAT = "telr_span"
+# spans that only say which stage runs: a stretch inside one of them and
+# no other is still unnamed
+STAGE_LEVEL_SPANS = ("assembly", "annotate", "annotate.families", "af",
+                     "liftover")
 
 
 def find_trace(path: str) -> str:
@@ -66,7 +76,7 @@ def build_report(trace: dict, top: int = 5) -> dict:
     stages = sorted(
         ((e["name"][len(STAGE_PREFIX):], float(e["ts"]),
           float(e["ts"]) + float(e.get("dur", 0)))
-         for e in events if e.get("cat") not in HOST_SKIP
+         for e in events if e.get("cat") not in HOST_SKIP + (SPAN_CAT,)
          and str(e.get("name", "")).startswith(STAGE_PREFIX)),
         key=lambda s: s[1])
     starts = [s[1] for s in stages]
@@ -106,10 +116,67 @@ def build_report(trace: dict, top: int = 5) -> dict:
             "top": [{"name": n, "s": s, "count": c}
                     for n, (s, c) in busy[:top]],
         })
+    run = (stages[0][1], max(s[2] for s in stages)) if stages else None
     return {"stages": table, "device_total_s": total,
             "unattributed_device_s": unattributed,
+            "idle_gaps": idle_gaps(events, run) if run else [],
             "devices": [d.get("name") for d in
                         trace.get("deviceProperties", [])]}
+
+
+def _union(ivs):
+    out = []
+    for a, b in sorted(ivs):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def idle_gaps(events, run, top: int = 10) -> list:
+    """The `top` longest stretches of `run` (start, end in trace
+    microseconds) with no kernel, copy or set, longest first, each named by
+    the innermost program span over it: the shortest span that covers half
+    of it or more, else the one that overlaps it most with a "+", else
+    "unnamed".  `unnamed_s` is the part of the stretch inside no program
+    span below the stage level (the pipeline's stage spans, assemble_all's,
+    the tail stages')."""
+    r0, r1 = run
+    busy = _union([(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in events if e.get("cat") in DEVICE_CATS])
+    gaps, t = [], r0
+    for a, b in busy:
+        if a > t:
+            gaps.append((t, min(a, r1)))
+        t = max(t, b)
+    if t < r1:
+        gaps.append((t, r1))
+    gaps = sorted((g for g in gaps if g[1] > g[0]),
+                  key=lambda g: g[0] - g[1])[:top]
+    # the program's spans before the stage spans: a tie goes to the former
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+              e["name"]) for e in sorted(
+                  (e for e in events if e.get("cat") == SPAN_CAT
+                   or (e.get("cat") not in HOST_SKIP
+                       and str(e.get("name", "")).startswith(STAGE_PREFIX))),
+                  key=lambda e: e.get("cat") != SPAN_CAT)]
+    named = _union([(a, b) for a, b, n in spans
+                    if n not in STAGE_LEVEL_SPANS
+                    and not n.startswith(STAGE_PREFIX)])
+    out = []
+    for g0, g1 in gaps:
+        over = [(min(g1, b) - max(g0, a), b - a, n) for a, b, n in spans
+                if min(g1, b) > max(g0, a)]
+        half = [o for o in over if o[0] >= 0.5 * (g1 - g0)]
+        name = (min(half, key=lambda o: o[1])[2] if half
+                else max(over)[2] + "+" if over else "unnamed")
+        covered = sum(max(0.0, min(g1, b) - max(g0, a)) for a, b in named)
+        out.append({"start_us": g0, "seconds": (g1 - g0) / 1e6,
+                    "name": name,
+                    "unnamed_s": (g1 - g0 - covered) / 1e6})
+    return out
+
 
 
 def card_windows(trace: dict) -> dict:
@@ -163,6 +230,9 @@ def main(argv=None) -> None:
         print(f"{row['stage']:20s} wall {row['wall_s']:9.3f} s   device "
               f"{row['device_s']:9.4f} s ({row['busy_share'] * 100:5.2f}%)"
               + (f"   {tops}" if tops else ""))
+    for g in rep["idle_gaps"]:
+        print(f"idle {g['seconds']:9.3f} s   {g['name']}   (inside no "
+              f"span below the stages: {g['unnamed_s']:.3f} s)")
     print(f"devices: {rep['devices']}; trace {rep['trace']} "
           f"({rep['trace_bytes']} bytes); device total "
           f"{rep['device_total_s']:.4f} s, outside every stage "
