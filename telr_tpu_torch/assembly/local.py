@@ -277,7 +277,7 @@ def _assemble_batch(items: List[Tuple[str, List[str], List[str], List[str]]],
     # POA refinement: the pileup vote converges to a backbone-biased fixed
     # point on deletion-heavy noise (bases missing from the backbone only
     # return through gated insertion events; measured ~94% identity on
-    # ONT) — two banded partial-order rounds (native telr_poa_consensus,
+    # ONT) — two banded partial-order rounds (telr_poa_consensus_rows,
     # the wtpoa-cns role, reference TELR_assembly.py:225-247) finish the
     # contig: every read variant is a graph node and the majority-scored
     # heaviest path is the consensus, with no backbone bias.
@@ -334,12 +334,15 @@ def _assemble_batch(items: List[Tuple[str, List[str], List[str], List[str]]],
                                      locus=st.name, segs=len(segs),
                                      backbone_len=len(st.consensus),
                                      round=rnd):
-                    return st, _native.poa_consensus(
+                    dp = {}
+                    refined = _native.poa_consensus(
                         st.consensus, segs, c0s, c1s, width=192,
                         match=preset.match, mismatch=preset.mismatch,
                         gap_open=preset.gap_open,
                         gap_extend=preset.gap_extend,
-                        min_cov=2 if len(segs) > 2 else 1)
+                        min_cov=2 if len(segs) > 2 else 1, stats=dp)
+                    hoststats.annotate(**dp)
+                    return st, refined
 
             # the ctypes POA call releases the GIL — thread across loci
             import os as _os

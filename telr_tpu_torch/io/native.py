@@ -3,7 +3,8 @@
 Provides fast paths for sequence encoding, fasta scanning and minimizer
 extraction.  Falls back to the pure-numpy implementations transparently when
 the shared library has not been built (`make -C native`); the row-banded DP
-has no fallback in this package and raises instead.
+has no fallback in this package and raises instead.  The POA is the port's
+own host kernel (csrc/poa_rows.cpp, built by io/host_lib.py).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import os
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from telr_tpu_torch.io import host_lib
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
@@ -103,14 +106,6 @@ def load() -> Optional[ctypes.CDLL]:
         lib.telr_chain_dp.restype = None
     except AttributeError:
         # older .so without the chaining DP; callers fall back to numpy
-        pass
-    try:
-        i32 = ctypes.c_int32
-        lib.telr_poa_consensus.argtypes = (
-            [ctypes.c_void_p, i64] + [ctypes.c_void_p] * 4 + [i64]
-            + [i32] * 6 + [ctypes.c_void_p, i64])
-        lib.telr_poa_consensus.restype = i64
-    except AttributeError:
         pass
     try:
         lib.telr_chain_extract.argtypes = [
@@ -357,20 +352,25 @@ def has_traceback() -> bool:
 
 
 def has_poa() -> bool:
-    lib = load()
-    return lib is not None and hasattr(lib, "telr_poa_consensus")
+    return host_lib.load() is not None
 
 
 def poa_consensus(backbone: np.ndarray, segments, col0s, col1s=None, *,
                   width: int = 64, match: int = 2, mismatch: int = 4,
                   gap_open: int = 4, gap_extend: int = 2,
-                  min_cov: int = 2) -> np.ndarray:
+                  min_cov: int = 2,
+                  stats: Optional[dict] = None) -> np.ndarray:
     """Banded partial-order consensus (the wtpoa-cns role).
 
     segments: oriented read segments (int8 code arrays); col0s/col1s[i] =
     the backbone span the segment covers (band anchors; the band center
-    follows the linear map of the segment onto that span)."""
-    lib = load()
+    follows the linear map of the segment onto that span).  A `stats` dict
+    gets the DP's dp_rows, dp_cells and late_pred_rows (rows that read a
+    predecessor ranked later).  gap_open < 0 raises ValueError."""
+    if gap_open < 0:
+        raise ValueError(f"poa_consensus: gap_open {gap_open} < 0 is not "
+                         "supported")
+    lib = host_lib.load()
     backbone = np.ascontiguousarray(backbone, dtype=np.int8)
     off = np.zeros(len(segments) + 1, dtype=np.int64)
     for i, s in enumerate(segments):
@@ -384,11 +384,15 @@ def poa_consensus(backbone: np.ndarray, segments, col0s, col1s=None, *,
     col1 = np.ascontiguousarray(np.asarray(col1s, dtype=np.int64))
     cap = len(backbone) + int(off[-1]) + 16
     out = np.empty(cap, dtype=np.int8)
-    n = lib.telr_poa_consensus(
+    counts = np.zeros(3, dtype=np.int64)
+    n = lib.telr_poa_consensus_rows(
         backbone.ctypes.data, len(backbone), flat.ctypes.data,
         off.ctypes.data, col0.ctypes.data, col1.ctypes.data,
         len(segments), width, match, mismatch, gap_open, gap_extend,
-        min_cov, out.ctypes.data, cap)
+        min_cov, out.ctypes.data, cap, counts.ctypes.data)
+    if stats is not None:
+        stats.update(dp_rows=int(counts[0]), dp_cells=int(counts[1]),
+                     late_pred_rows=int(counts[2]))
     if n < 0:
         return np.zeros(0, dtype=np.int8)
     return out[:n].copy()

@@ -22,7 +22,7 @@ cumulative and own-time tables.  The stage's DPs are routed as the CLI's
 cpu.  Each launch of a hand-written kernel is timed on the card with CUDA
 events (on the CPU, its plain version with the host clock), so the stage's
 device seconds stand beside its wall.  For assembly the wall is split into
-POA (the native telr_poa_consensus calls, as wall time across their
+POA (the host telr_poa_consensus_rows calls, as wall time across their
 threads), the per-round prep (the per-locus index builds, the piece
 planning, the wavefront batch prep and launch, the extension scheduling),
 the device wait (the wavefront route's copies back, which wait for its

@@ -149,7 +149,8 @@ def _spans(events):
 def test_poa_spans_are_the_poa_calls(traced_run):
     """Each assembly.poa span in the pipeline's trace is one poa_consensus
     call, on the POA pool's thread, with its locus, its segments and its
-    backbone, caused by its round's realignment span."""
+    backbone, caused by its round's realignment span, and the row-form DP's
+    rows and cells, which the binding puts on it."""
     res, events, calls = traced_run
     assert calls, "the run made no POA call"
     spans = _spans(events)
@@ -161,6 +162,9 @@ def test_poa_spans_are_the_poa_calls(traced_run):
     loci = {r.locus_name for r in res.records}
     for e in poa:
         assert e["args"]["locus"] in loci
+        assert e["args"]["dp_rows"] > 0
+        assert e["args"]["dp_cells"] >= e["args"]["dp_rows"]
+        assert e["args"]["late_pred_rows"] >= 0
         round_span = by_id[e["args"]["parent"]]
         assert round_span["name"] == "assembly.realign"
         assert round_span["args"]["round"] == e["args"]["round"]
