@@ -18,7 +18,8 @@ torch ops over padded per-locus alignment batches:
      the device before any result is copied back.
 
 Insertion events (ragged, a handful per locus) stay host-side; they are read
-straight off the run boundaries.
+straight off the run boundaries, and the consensus of every event of a round
+is one call into the port's host library (csrc/ins_events.cpp).
 
 Parity: bit-identical to assembly.local.consensus_vote (the numpy reference
 implementation) — pinned by tests/test_torch_vote.py.
@@ -112,9 +113,35 @@ def _vote_torch(qcodes, opcode, oplen, qstart, tstart, backbone):
 _VOTE_ELEMS = 1 << 25
 
 
+class InsTable:
+    """One locus's insertion sequences, left-shifted (leftshift_ins), by
+    the column they vote on: `cols` maps a column to its sequences' ids in
+    the order the alignments gave them.  freeze() lays the sequences out
+    once in one flat buffer, which the round's event batch reads."""
+
+    __slots__ = ("cols", "seqs", "codes", "lens")
+
+    def __init__(self) -> None:
+        self.cols: Dict[int, List[int]] = {}
+        self.seqs: List[np.ndarray] = []
+        self.codes = self.lens = None
+
+    def add(self, col: int, seq: np.ndarray) -> None:
+        self.cols.setdefault(col, []).append(len(self.seqs))
+        self.seqs.append(seq)
+
+    def freeze(self) -> "InsTable":
+        self.codes = (np.concatenate(self.seqs).astype(np.int8, copy=False)
+                      if self.seqs else np.zeros(0, dtype=np.int8))
+        self.lens = np.fromiter(map(len, self.seqs), dtype=np.int64,
+                                count=len(self.seqs))
+        self.seqs = []
+        return self
+
+
 class _PackedLocus:
     __slots__ = ("qcodes", "opcode", "oplen", "qstart", "tstart",
-                 "backbone", "n", "ins_seqs", "n_reads")
+                 "backbone", "n", "ins", "n_reads")
 
     def __init__(self, backbone: np.ndarray, alignments) -> None:
         from telr_tpu_torch.assembly.local import _oriented
@@ -127,7 +154,7 @@ class _PackedLocus:
         oplen = np.zeros((a_n, r_max), dtype=np.int32)
         qstart = np.zeros(a_n, dtype=np.int32)
         tstart = np.zeros(a_n, dtype=np.int32)
-        ins: Dict[int, List[np.ndarray]] = {}
+        ins = InsTable()
         for i, (a, codes) in enumerate(alignments):
             qc, qi = _oriented(a, codes)
             qcodes[i, : len(qc)] = qc
@@ -138,8 +165,7 @@ class _PackedLocus:
                 opcode[i, r] = _OP_CODE[op]
                 oplen[i, r] = ln
                 if op == "I":
-                    js, sq = leftshift_ins(backbone, tj, qc[qi:qi + ln])
-                    ins.setdefault(js, []).append(sq)
+                    ins.add(*leftshift_ins(backbone, tj, qc[qi:qi + ln]))
                     qi += ln
                 elif op == "M":
                     qi += ln
@@ -153,7 +179,7 @@ class _PackedLocus:
         self.tstart = tstart
         self.backbone = np.asarray(backbone, dtype=np.int8)
         self.n = n
-        self.ins_seqs = ins
+        self.ins = ins.freeze()
         self.n_reads = a_n
 
     def buckets(self) -> Tuple[int, int, int, int]:
@@ -161,105 +187,25 @@ class _PackedLocus:
                 _bucket(self.qcodes.shape[1], 2048), _bucket(self.n, 2048))
 
 
-_INS_CONSENSUS_MAX = 400   # events longer than this keep the representative
-                           # read segment (they are whole-TE splices from a
-                           # non-spanning backbone, individually alignable)
-
-
-def _ins_event_consensus(seqs: List[np.ndarray]) -> np.ndarray:
-    """Consensus of one insertion event's supporting sequences.
-
-    The former rule spliced the median-length supporter VERBATIM — raw
-    read bases, so every junction-adjacent event inherited that read's
-    error rate (~12% on ONT), which is exactly where TSD bases live
-    (reference wtpoa-cns computes a POA consensus here,
-    TELR_assembly.py:225-247).  Column vote: align every supporter to the
-    median-length representative (tiny global DPs), vote M-run bases and
-    deletions per column, restore sub-majority-deleted columns by nested
-    insertion majority."""
-    if len(seqs) == 1:
-        return seqs[0].astype(np.int8)
-    from collections import Counter
-    counts = Counter(s.tobytes() for s in seqs)
-    top, cnt = counts.most_common(1)[0]
-    if 2 * cnt > len(seqs):
-        return np.frombuffer(top, dtype=np.int8).copy()
-    lens = sorted(range(len(seqs)), key=lambda i: len(seqs[i]))
-    rep = seqs[lens[len(lens) // 2]].astype(np.int8)
-    if len(rep) > _INS_CONSENSUS_MAX or len(rep) == 0:
-        return rep
-    from telr_tpu_torch.kernels import dp
-    from telr_tpu_torch.utils import hoststats
-    params = dp.DPParams()
-    n = len(rep)
-    votes = np.zeros((n, 5), dtype=np.int32)
-    delv = np.zeros(n, dtype=np.int32)
-    cov = np.zeros(n, dtype=np.int32)
-    nested: Dict[int, List[np.ndarray]] = {}
-    items = [(s.astype(np.int8), rep, dp.GLOBAL, params, None, None)
-             for s in seqs]
-    with hoststats.timer("vote.ins_realign"):
-        aligned = dp.align_pairs(items, cigar_arrays=True)
-    for s, res in zip(seqs, aligned):
-        qi = tj = 0
-        ops, ls = dp.cigar_to_arrays(res["cigar"])
-        for op, ln in zip(ops.tolist(), ls.tolist()):
-            if op == 0:    # M
-                votes[np.arange(tj, tj + ln),
-                      s[qi:qi + ln].astype(np.int64)] += 1
-                cov[tj:tj + ln] += 1
-                qi += ln
-                tj += ln
-            elif op == 1:  # D
-                delv[tj:tj + ln] += 1
-                cov[tj:tj + ln] += 1
-                tj += ln
-            else:          # I
-                js, sq = leftshift_ins(rep, tj, s[qi:qi + ln])
-                nested.setdefault(js, []).append(sq)
-                qi += ln
-    col = np.arange(n)
-    bb = rep.astype(np.int64)
-    best = votes.argmax(axis=1)
-    best = np.where(votes[col, best] == votes[col, bb], bb, best)
-    best = np.where(votes.sum(axis=1) == 0, bb, best).astype(np.int8)
-    keep = ~(delv * 2 > cov)
-    parts: List[np.ndarray] = []
-    prev = 0
-    for j in sorted(nested):
-        sqs = nested[j]
-        if 2 * len(sqs) <= int(cov[j] if j < n else len(seqs)):
-            continue
-        jl = sorted(len(x) for x in sqs)
-        med = jl[len(jl) // 2]
-        sq = min(sqs, key=lambda x: abs(len(x) - med))
-        parts.append(best[prev:j][keep[prev:j]])
-        parts.append(sq.astype(np.int8))
-        prev = j
-    parts.append(best[prev:][keep[prev:]])
-    return np.concatenate(parts).astype(np.int8)
-
-
-def finalize_consensus(backbone: np.ndarray, best: np.ndarray,
-                       keep: np.ndarray, cov: np.ndarray,
-                       ins_seqs: Dict[int, List[np.ndarray]],
-                       n_reads: int, min_cov: int = 2) -> np.ndarray:
-    """Tip trimming + insertion-event splice (ragged host tail of the vote;
-    shared with the numpy path — semantics of consensus_vote steps 3-4)."""
+def _plan_events(cov: np.ndarray, ins: InsTable, n_reads: int,
+                 min_cov: int):
+    """Tip trimming and the choice of insertion events of one locus: (lo,
+    hi, [(column, supporter ids)] by column), or None when no column is
+    covered.  Which events exist depends only on the coverage and the
+    supporter counts, so a round's events are all known before any
+    consensus is computed."""
     covered = np.nonzero(cov >= (min_cov if n_reads > 2 else 1))[0]
     if covered.size == 0:
-        return np.zeros(0, dtype=np.int8)
+        return None
     lo, hi = int(covered[0]), int(covered[-1]) + 1
-    best = best[lo:hi].astype(np.int8)
-    keep = keep[lo:hi]
-    events: List[Tuple[int, np.ndarray]] = []
+    cols = ins.cols
+    events: List[Tuple[int, List[int]]] = []
     weak: List[int] = []
-    for j in sorted(ins_seqs):
+    for j in sorted(cols):
         if not (lo < j < hi):
             continue
-        seqs = ins_seqs[j]
-        if 2 * len(seqs) > int(cov[j]):
-            events.append((j, _ins_event_consensus(seqs)))
+        if 2 * len(cols[j]) > int(cov[j]):
+            events.append((j, cols[j]))
         else:
             weak.append(j)
     # adjacent-column pooling of sub-majority insertions: a deleted
@@ -278,25 +224,100 @@ def finalize_consensus(backbone: np.ndarray, best: np.ndarray,
         if cluster and (j - cluster[-1] > 2 or j >= hi):
             if not any(c in taken or c - 1 in taken or c + 1 in taken
                        for c in cluster):
-                seqs = [s for c in cluster for s in ins_seqs[c]]
+                ids = [i for c in cluster for i in cols[c]]
                 jm = cluster[len(cluster) // 2]
-                if 3 * len(seqs) > 2 * int(cov[jm]):
-                    events.append((cluster[0],
-                                   _ins_event_consensus(seqs)))
+                if 3 * len(ids) > 2 * int(cov[jm]):
+                    events.append((cluster[0], ids))
             cluster = []
         if j < hi:
             cluster.append(j)
     events.sort(key=lambda e: e[0])
+    return lo, hi, events
+
+
+def _events_consensus(loci_events) -> List[np.ndarray]:
+    """The consensus of every event of a round in one native call
+    (csrc/ins_events.cpp), in order: loci_events is (InsTable, [supporter
+    ids of each event]) per locus.  One `vote.ins_events` span.
+
+    An event's consensus is a column vote over its supporters aligned to
+    the median-length one (tiny global DPs), with sub-majority-deleted
+    columns restored by nested insertion majority: splicing one raw read's
+    bases instead would give every junction-adjacent event, where the TSD
+    bases live, that read's error rate (~12% on ONT; reference wtpoa-cns
+    computes a POA consensus here, TELR_assembly.py:225-247)."""
+    from telr_tpu_torch.io import host_lib
+    from telr_tpu_torch.utils import hoststats
+    with hoststats.timer("vote.ins_events"):
+        codes, lens, ev_sup, ev_off, base = [], [], [], [0], 0
+        for ins, events in loci_events:
+            if not events:
+                continue
+            codes.append(ins.codes)
+            lens.append(ins.lens)
+            for ids in events:
+                ev_sup.extend(base + i for i in ids)
+                ev_off.append(len(ev_sup))
+            base += len(ins.lens)
+        stats = {"dp_events": 0, "pairs": 0, "cells": 0}
+        out: List[np.ndarray] = []
+        if codes:
+            sup_off = np.zeros(base + 1, dtype=np.int64)
+            np.cumsum(np.concatenate(lens), out=sup_off[1:])
+            out = host_lib.ins_event_consensus_batch(
+                np.concatenate(codes), sup_off,
+                np.asarray(ev_sup, dtype=np.int64),
+                np.asarray(ev_off, dtype=np.int64), stats=stats)
+        hoststats.annotate(events=len(ev_off) - 1, **stats)
+    return out
+
+
+def _splice(best: np.ndarray, keep: np.ndarray, plan,
+            seqs) -> np.ndarray:
+    """The trimmed consensus of one locus with its events' sequences
+    (taken in order from the iterator `seqs`) spliced in."""
+    if plan is None:
+        return np.zeros(0, dtype=np.int8)
+    lo, hi, events = plan
+    best = best[lo:hi].astype(np.int8)
+    keep = keep[lo:hi]
     parts: List[np.ndarray] = []
     prev = lo
-    for j, seq in events + [(hi, None)]:
+    for j, ids in events + [(hi, None)]:
         m = keep[prev - lo:j - lo]
         parts.append(best[prev - lo:j - lo][m])
-        if seq is not None:
-            parts.append(seq)
+        if ids is not None:
+            parts.append(next(seqs))
         prev = j
-    out = np.concatenate(parts) if parts else np.zeros(0, dtype=np.int8)
-    return out.astype(np.int8)
+    return np.concatenate(parts).astype(np.int8)
+
+
+def finalize_many(loci, min_cov: int = 2) -> List[np.ndarray]:
+    """The ragged host finish of the vote (consensus_vote steps 3-4), for
+    every locus of a round: loci is (best, keep, cov, InsTable, n_reads)
+    per locus.  Three phases: each locus's trim and events (Python), every
+    event's consensus in one native call, each locus's splice."""
+    plans = [_plan_events(cov, ins, n_reads, min_cov)
+             for _best, _keep, cov, ins, n_reads in loci]
+    seqs = iter(_events_consensus(
+        [(ins, [ids for _j, ids in plan[2]])
+         for (_b, _k, _c, ins, _n), plan in zip(loci, plans) if plan]))
+    return [_splice(best, keep, plan, seqs)
+            for (best, keep, *_rest), plan in zip(loci, plans)]
+
+
+def finalize_consensus(backbone: np.ndarray, best: np.ndarray,
+                       keep: np.ndarray, cov: np.ndarray,
+                       ins_seqs: Dict[int, List[np.ndarray]],
+                       n_reads: int, min_cov: int = 2) -> np.ndarray:
+    """finalize_many over one locus whose insertion sequences come by
+    column (the numpy path, local.consensus_vote)."""
+    ins = InsTable()
+    for j, seqs in ins_seqs.items():
+        for sq in seqs:
+            ins.add(j, sq)
+    return finalize_many([(best, keep, cov, ins.freeze(), n_reads)],
+                         min_cov)[0]
 
 
 def vote_many(items: Sequence[Tuple[np.ndarray, list]],
@@ -344,12 +365,13 @@ def vote_many(items: Sequence[Tuple[np.ndarray, list]],
 
     results: List[np.ndarray] = [None] * len(packed)  # type: ignore
     with hoststats.timer("vote.finalize"):
-        for idxs, best, keep, cov in fetched:
-            for s, i in enumerate(idxs):
-                p = packed[i]
-                results[i] = finalize_consensus(
-                    p.backbone, best[s, : p.n], keep[s, : p.n],
-                    cov[s, : p.n], p.ins_seqs, p.n_reads, min_cov)
+        order = [i for idxs, *_rest in fetched for i in idxs]
+        loci = [(best[s, : packed[i].n], keep[s, : packed[i].n],
+                 cov[s, : packed[i].n], packed[i].ins, packed[i].n_reads)
+                for idxs, best, keep, cov in fetched
+                for s, i in enumerate(idxs)]
+        for i, out in zip(order, finalize_many(loci, min_cov)):
+            results[i] = out
     return results
 
 

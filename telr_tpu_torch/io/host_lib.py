@@ -1,12 +1,14 @@
 """Build and load the port's own host kernels (telr_tpu_torch/csrc/*.cpp).
 
 The sources are compiled with the C++ compiler into one shared library with
-a plain C interface, loaded with ctypes: today the row-form POA
-(csrc/poa_rows.cpp, bound by io/native.py's poa_consensus).  The build runs
-at first use, never at import: the library lands in telr_tpu_torch/_build/,
-keyed on a hash of the sources, the flags and the target the compiler makes
-of -march=native on this host, so a fresh checkout builds once, every later
-process reuses it, and a library built for another CPU is never loaded.
+a plain C interface, loaded with ctypes: the row-form POA (csrc/poa_rows.cpp,
+bound by io/native.py's poa_consensus) and the vote's insertion-event
+consensus (csrc/ins_events.cpp, bound here: ins_event_consensus_batch).
+The build runs at first use, never at import: the library lands in
+telr_tpu_torch/_build/, keyed on a hash of the sources, the flags and the
+target the compiler makes of -march=native on this host, so a fresh checkout
+builds once, every later process reuses it, and a library built for another
+CPU is never loaded.
 A build failure raises; there is no fallback.
 """
 
@@ -18,7 +20,9 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional
+from typing import List, Optional
+
+import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -88,5 +92,49 @@ def load() -> ctypes.CDLL:
             lib.telr_poa_consensus_rows.argtypes = (
                 [vp, i64] + [vp] * 4 + [i64] + [i32] * 6 + [vp, i64, vp])
             lib.telr_poa_consensus_rows.restype = i64
+            lib.telr_ins_event_consensus_batch.argtypes = (
+                [vp] * 4 + [i64, vp, i64, vp, vp])
+            lib.telr_ins_event_consensus_batch.restype = i64
             _LIB = lib
     return _LIB
+
+
+def ins_event_consensus_batch(codes: np.ndarray, sup_off: np.ndarray,
+                              ev_sup: np.ndarray, ev_off: np.ndarray,
+                              stats: Optional[dict] = None
+                              ) -> List[np.ndarray]:
+    """The consensus of every insertion event of a vote round, in one call
+    (csrc/ins_events.cpp; the rule of assembly/device_vote.py's events).
+
+    Supporter s is codes[sup_off[s]:sup_off[s + 1]] (int8 codes 0..4);
+    event e's supporters are ev_sup[ev_off[e]:ev_off[e + 1]], in the order
+    the vote met them.  Returns one int8 array per event, views of one
+    buffer.  A `stats` dict gets dp_events (the events that ran the DP),
+    pairs (their supporters) and cells (the sum of len(supporter) x
+    len(representative))."""
+    lib = load()
+    codes = np.ascontiguousarray(codes, dtype=np.int8)
+    sup_off = np.ascontiguousarray(sup_off, dtype=np.int64)
+    ev_sup = np.ascontiguousarray(ev_sup, dtype=np.int64)
+    ev_off = np.ascontiguousarray(ev_off, dtype=np.int64)
+    n_ev = len(ev_off) - 1
+    # an event writes at most its representative plus its supporters
+    cap = 2 * int((sup_off[ev_sup + 1] - sup_off[ev_sup]).sum())
+    out = np.empty(max(cap, 1), dtype=np.int8)
+    out_off = np.zeros(n_ev + 1, dtype=np.int64)
+    counts = np.zeros(3, dtype=np.int64)
+    n = lib.telr_ins_event_consensus_batch(
+        codes.ctypes.data, sup_off.ctypes.data, ev_sup.ctypes.data,
+        ev_off.ctypes.data, n_ev, out.ctypes.data, len(out),
+        out_off.ctypes.data, counts.ctypes.data)
+    if n < 0:
+        raise RuntimeError(
+            {-1: "an insertion event's traceback left the band",
+             -2: "the insertion events' output buffer is too small",
+             -3: "an insertion event holds a base code outside 0..4"}[n])
+    if stats is not None:
+        stats.update(dp_events=int(counts[0]), pairs=int(counts[1]),
+                     cells=int(counts[2]))
+    bounds = out_off.tolist()
+    return [out[a:b] for a, b in zip(bounds, bounds[1:])]
+

@@ -2,9 +2,11 @@
 and the spans at its layer boundaries, on the CPU: no span is kept without a
 profiler and the counters read as before; under a profiler each span carries
 its thread, perf_counter bounds, cause and attributes; the pipeline's trace
-holds the POA pool's spans, one a poa_consensus call; a wavefront launch
-counts the cells the benchmark's roofline counts; profile_report names the
-idle stretches of a trace."""
+holds the POA pool's spans, one a poa_consensus call; the vote's
+insertion-event batch is one span inside its host finish, counting what the
+JAX package's per-event rule counts; a wavefront launch counts the cells the
+benchmark's roofline counts; profile_report names the idle stretches of a
+trace."""
 
 from __future__ import annotations
 
@@ -186,7 +188,7 @@ def test_tail_and_vote_spans_in_the_trace(traced_run):
     names = collections.Counter(e["name"] for e in spans)
     for name in ("assembly", "annotate", "annotate.families", "af",
                  "liftover", "vote.pack", "vote.device", "vote.finalize",
-                 "map_dispatch", "map_postprocess", "dp.host"):
+                 "vote.ins_events", "map_dispatch", "map_postprocess", "dp.host"):
         assert names[name] >= 1, name
     by_id = {e["args"]["id"]: e for e in spans}
 
@@ -199,6 +201,53 @@ def test_tail_and_vote_spans_in_the_trace(traced_run):
     assert {stage(e) for e in dp_host} >= {"assembly", "annotate", "af"}
     assert all(e["args"]["pairs"] >= 1 and e["args"]["cells"] > 0
                for e in dp_host)
+    # the insertion events are one batch a vote round, inside its finish;
+    # the per-event realignment span is gone
+    ins = [e for e in spans if e["name"] == "vote.ins_events"]
+    assert len(ins) == names["vote.finalize"]
+    assert all(by_id[e["args"]["parent"]]["name"] == "vote.finalize"
+               for e in ins)
+    assert names["vote.ins_realign"] == 0
+
+
+def test_vote_ins_events_span():
+    """vote_many's insertion-event batch is one `vote.ins_events` span
+    inside `vote.finalize`; its events, dp_events, pairs and cells equal a
+    count of the JAX package's per-event calls on the same loci, and no
+    `vote.ins_realign` span is left."""
+    from telr_tpu.assembly import device_vote as jax_vote
+    from telr_tpu_torch.assembly.device_vote import vote_many
+    from test_torch_vote_events import event_loci, expected_stats
+    items = event_loci(np.random.default_rng(1718), n_loci=2)
+    seen = []
+    orig = jax_vote._ins_event_consensus
+
+    def count(seqs):
+        seen.append(list(seqs))
+        return orig(seqs)
+
+    jax_vote._ins_event_consensus = count
+    try:
+        jax_vote.vote_many(items)
+    finally:
+        jax_vote._ins_event_consensus = orig
+    want = dict(events=len(seen), **expected_stats(seen))
+    assert want["dp_events"] > 0
+    hoststats.drain_spans()
+    prof = _profiler()
+    prof.start()
+    try:
+        vote_many(items, device="cpu")
+    finally:
+        prof.stop()
+    spans = hoststats.drain_spans()
+    ins = [s for s in spans if s.name == "vote.ins_events"]
+    fin = [s for s in spans if s.name == "vote.finalize"]
+    assert len(ins) == len(fin) == 1
+    assert ins[0].parent == fin[0].id
+    assert fin[0].t0 <= ins[0].t0 <= ins[0].t1 <= fin[0].t1
+    assert ins[0].attrs == want
+    assert not [s for s in spans if s.name == "vote.ins_realign"]
 
 
 def test_wave_launch_counts_the_rooflines_cells():
